@@ -1,7 +1,7 @@
 // ugrt native runtime: fast scene loading + image IO.
 //
 // The reference's host runtime is C/C++ (the vendored obj_parser/ and the
-// PPM writer in per_app_funcs.h:39-66).  This library is the TPU
+// PPM writer in per_app_funcs.h:39-66).  This library is the
 // framework's native equivalent: a single-pass OBJ parser producing the
 // flat arrays the device path consumes (float32 vertices, int32 faces,
 // int32 per-face material indices — matching Model::load_model,

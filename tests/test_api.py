@@ -56,9 +56,9 @@ def test_checkpoint_roundtrip_npz(tmp_path):
     state = {"params": {"vertices": np.ones((4, 3), np.float32) * 2,
                         "materials": np.zeros((2, 6), np.float32)}}
     p = str(tmp_path / "ck")
-    ckpt.save_checkpoint(p, state, step=7, use_orbax=False)
+    ckpt.save_checkpoint(p, state, step=7)
     assert ckpt.latest_step(p) == 7
-    loaded = ckpt.load_checkpoint(p, use_orbax=False)
+    loaded = ckpt.load_checkpoint(p)
     key = [k for k in loaded if "vertices" in k][0]
     np.testing.assert_array_equal(loaded[key],
                                   state["params"]["vertices"])
@@ -67,11 +67,37 @@ def test_checkpoint_roundtrip_npz(tmp_path):
 def test_checkpoint_latest_of_many(tmp_path):
     p = str(tmp_path / "ck")
     for s in (1, 5, 3):
-        ckpt.save_checkpoint(p, {"x": np.full(2, s, np.float32)}, step=s,
-                             use_orbax=False)
+        ckpt.save_checkpoint(p, {"x": np.full(2, s, np.float32)}, step=s)
     assert ckpt.latest_step(p) == 5
-    loaded = ckpt.load_checkpoint(p, use_orbax=False)
+    loaded = ckpt.load_checkpoint(p)
     assert loaded["x"][0] == 5
+
+
+@pytest.mark.parametrize("from_env", [True, False])
+def test_compilation_cache_dir(monkeypatch, tmp_path, from_env):
+    """JAX_COMPILATION_CACHE_DIR wins and no other directory is set;
+    without it the cache is a fixed directory inside the checkout."""
+    import jax
+
+    from ugrt.api import compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    if from_env:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    try:
+        path = compile_cache.enable_compilation_cache()
+        if from_env:
+            assert path == str(tmp_path)
+            assert jax.config.jax_compilation_cache_dir == before
+        else:
+            root = os.path.dirname(os.path.dirname(os.path.abspath(
+                __file__)))
+            assert path == os.path.join(root, ".jax_cache", "cpu")
+            assert jax.config.jax_compilation_cache_dir == path
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
 
 
 def test_stage_timer():

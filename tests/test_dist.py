@@ -112,8 +112,8 @@ def test_sharded_windowed_matches_single_device(tiny_cfg, cornell,
 def test_sharded_pallas_matches_sharded_xla(tiny_cfg, cornell,
                                             generic_camera, generic_light,
                                             mesh8):
-    """The multi-chip path must run the fused kernels (VERDICT r2 #6):
-    sharded pallas (interpret) render == sharded XLA render, bitwise."""
+    """The multi-device path runs the fused kernel: sharded kernel
+    (interpreted) render == sharded XLA render, bitwise."""
     cfg = tiny_cfg
     verts, mats, faces, mat_index, cc, lcc, lp = _inputs(
         cfg, cornell, generic_camera, generic_light)

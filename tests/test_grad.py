@@ -152,7 +152,7 @@ def test_grad_zero_when_miss(tiny_cfg):
 
 
 def _cornell_setup(cfg):
-    """Multi-face scene: winners differ across pixels (VERDICT r2 #8).
+    """Multi-face scene: winners differ across pixels.
 
     The box is rotated a few degrees so no face is axis-aligned: the
     reference's abs-normal / |N.L| quirks put axis-aligned geometry
@@ -273,7 +273,7 @@ def test_cornell_vertex_gradient_matches_fd(tiny_cfg):
 def test_shadowed_pixel_gradient_matches_fd(tiny_cfg):
     """FD through the shadow /3 modulation: the mask is stop-gradded
     (piecewise constant) but material gradients of shadowed pixels must
-    carry the 1/3 factor (VERDICT r2 #8)."""
+    carry the 1/3 factor."""
     cfg = tiny_cfg
     sc, cc, lcc, lp = _cornell_setup(cfg)
     cap = cfg.pair_capacity(sc.num_faces)
@@ -314,7 +314,7 @@ def test_shadowed_pixel_gradient_matches_fd(tiny_cfg):
 
 def test_overflow_flag_reaches_caller(tiny_cfg):
     """An undersized pair capacity must surface overflow=True through the
-    differentiable path (VERDICT r2 #5: no silent truncation in training)."""
+    differentiable path (no silent truncation in training)."""
     cfg = tiny_cfg
     sc, cc, lcc, lp = _cornell_setup(cfg)
     faces = jnp.asarray(sc.faces)

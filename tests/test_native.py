@@ -1,13 +1,12 @@
-"""Native library tests (skipped when native/libugrt_native.so is absent;
-build with `make -C native`)."""
+"""Native library tests (the library is built at first use)."""
 
 import numpy as np
-import pytest
 
 from ugrt.scene import native
 
-pytestmark = pytest.mark.skipif(not native.available(),
-                                reason="native lib not built")
+
+def test_native_library_builds():
+    assert native.available(), "make -C native failed"
 
 
 def test_native_obj_matches_python(tmp_path):

@@ -1,4 +1,4 @@
-"""Real-OBJ end-to-end evidence (VERDICT r4 #5).
+"""Real-OBJ end-to-end evidence.
 
 Every other full-pipeline test feeds procedural arrays straight to the
 renderer; the reference is file-driven (scene.h:141-334 + the custom

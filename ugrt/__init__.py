@@ -1,4 +1,4 @@
-"""ugrt — uniform/perspective-grid ray tracing, TPU-native (JAX/Pallas).
+"""ugrt — differentiable uniform/perspective-grid ray tracing on the GPU (JAX/Pallas).
 
 A from-scratch differentiable ray tracing framework with the capabilities
 of the CUDA reference sushruta/uniformgrid-raytracing (EGPGV'10/TVCG'11):

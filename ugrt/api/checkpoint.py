@@ -1,13 +1,10 @@
 """Checkpoint / resume for inverse-rendering state.
 
 The reference has no checkpointing (SURVEY.md §5); the closest artifact
-is its per-frame PPM dump.  The new framework optimizes scene parameters
-(vertices, materials) over many steps on pod slices, so checkpointing is
-a first-class design requirement.
-
-Uses Orbax when available (the standard JAX checkpointing stack —
-multi-host safe, async-capable), with a plain .npz fallback so the
-capability never silently disappears.
+is its per-frame PPM dump.  The framework optimizes scene parameters
+(vertices, materials) over many steps, so checkpointing is a first-class
+design requirement.  Checkpoints are plain .npz files, one per step,
+holding the state's leaves under their '/'-joined tree paths.
 """
 
 from __future__ import annotations
@@ -17,23 +14,9 @@ import os
 import jax
 import numpy as np
 
-try:
-    import orbax.checkpoint as ocp
-    _HAS_ORBAX = True
-except Exception:  # pragma: no cover - environment without orbax
-    _HAS_ORBAX = False
-
-
-def save_checkpoint(path: str, state: dict, step: int,
-                    use_orbax: bool | None = None) -> str:
+def save_checkpoint(path: str, state: dict, step: int) -> str:
     """Save a pytree-of-arrays state dict.  Returns the written path."""
-    use_orbax = _HAS_ORBAX if use_orbax is None else use_orbax
     path = os.path.abspath(path)
-    if use_orbax and _HAS_ORBAX:
-        ckpt_dir = os.path.join(path, f"step_{step}")
-        with ocp.PyTreeCheckpointer() as ckptr:
-            ckptr.save(ckpt_dir, jax.device_get(state), force=True)
-        return ckpt_dir
     os.makedirs(path, exist_ok=True)
     fn = os.path.join(path, f"step_{step}.npz")
     flat = {}
@@ -47,21 +30,10 @@ def save_checkpoint(path: str, state: dict, step: int,
     return fn
 
 
-def load_checkpoint(path: str, step: int | None = None,
-                    use_orbax: bool | None = None) -> dict:
-    """Load the given (or latest) step.  Returns a flat {name: array}
-    dict for .npz checkpoints or the saved pytree for Orbax ones."""
-    use_orbax = _HAS_ORBAX if use_orbax is None else use_orbax
+def load_checkpoint(path: str, step: int | None = None) -> dict:
+    """Load the given (or latest) step of a checkpoint directory, or one
+    .npz file.  Returns a flat {name: array} dict."""
     path = os.path.abspath(path)
-    if use_orbax and _HAS_ORBAX and not str(path).endswith(".npz"):
-        steps = sorted(
-            int(d.split("_")[1]) for d in os.listdir(path)
-            if d.startswith("step_") and not d.endswith(".npz"))
-        if steps:
-            step = steps[-1] if step is None else step
-            with ocp.PyTreeCheckpointer() as ckptr:
-                return ckptr.restore(os.path.join(path, f"step_{step}"))
-    # npz fallback
     if os.path.isdir(path):
         files = sorted(f for f in os.listdir(path) if f.endswith(".npz"))
         assert files, f"no checkpoints under {path}"
@@ -83,10 +55,9 @@ def latest_step(path: str) -> int | None:
         return None
     steps = []
     for d in os.listdir(path):
-        if d.startswith("step_"):
-            tail = d[5:-4] if d.endswith(".npz") else d[5:]
+        if d.startswith("step_") and d.endswith(".npz"):
             try:
-                steps.append(int(tail))
+                steps.append(int(d[5:-4]))
             except ValueError:
                 pass
     return max(steps) if steps else None

@@ -32,7 +32,7 @@ LIGHT_POSITION = (10.0, 12.0, 6.0)
 
 def build_parser():
     p = argparse.ArgumentParser(
-        description="TPU uniform/perspective-grid ray tracer")
+        description="uniform/perspective-grid ray tracer")
     p.add_argument("scene", help="OBJ file or dynamic-scene directory")
     p.add_argument("material", nargs="?", default=None,
                    help="custom material file (scene.h:370 format)")
@@ -59,28 +59,9 @@ def build_parser():
     return p
 
 
-def enable_compilation_cache():
-    """Persistent XLA compilation cache (first 1024^2 compile is ~minutes
-    on TPU; cached reloads are seconds).
-
-    The directory is keyed by backend: XLA:CPU AOT entries embed host
-    machine features, and a shared directory poisons runs on other hosts
-    (the loader warns 'machine type ... doesn't match' and executions
-    fail with buffer-count mismatches)."""
-    import jax
-
-    try:
-        jax.config.update(
-            "jax_compilation_cache_dir",
-            os.path.expanduser(f"~/.jax_cache_{jax.default_backend()}"))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs",
-                          2.0)
-    except Exception:
-        pass
-
-
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    from ugrt.api.compile_cache import enable_compilation_cache
     enable_compilation_cache()
 
     import jax.numpy as jnp

@@ -3,7 +3,7 @@
 The reference instruments every stage with cutil GPU timers and prints
 milliseconds to stdout (SURVEY.md §5: per_frame_funcs.h:47-54,
 frustum_grid.h:293-302, frustum_tracer.h:47-55, decision_data.h:173-267,
-shader.h:77-85).  The TPU equivalents:
+shader.h:77-85).  The equivalents here:
 
 * `StageTimer` — wall-clock stage timing with block_until_ready
   bracketing (the analog of cudaThreadSynchronize around each launch);

@@ -1,4 +1,4 @@
-"""Frame renderer — the TPU equivalent of the reference's display() loop.
+"""Frame renderer — the equivalent of the reference's display() loop.
 
 display() (/root/reference/main.cu:59-302) per frame: camera matrices →
 perspective grid build → primary trace → per-light (spherical grid build +
@@ -48,11 +48,9 @@ def render_frame_device(vertices, faces, mat_index, materials,
 
     light_camcoords: [num_lights, 64].  Shading uses the last light's
     camcoords when lights exist (reference behavior), else the camera's.
-    trace_backend None selects pallas on TPU, xla elsewhere.
+    trace_backend None selects the platform's default
+    (ugrt.trace.default_trace_backend).
     """
-    if trace_backend is None:
-        from ugrt.trace import default_trace_backend
-        trace_backend = default_trace_backend()
     grid = gbuild.build_perspective_grid(
         vertices, faces, camcoords, cfg=cfg, capacity=capacity,
         align=1)
@@ -69,7 +67,7 @@ def render_frame_device(vertices, faces, mat_index, materials,
     mode = cfg.light_grid_mode
     # "windowed" spreads geometry over the full grid: measured pair
     # counts are 0.65x capacity at 74k faces and 0.80x at 51k on the
-    # flagship interior scenes (ADVICE r4 #4), so the 1x budget holds
+    # flagship interior scenes, so the 1x budget holds
     # with >=20% slack; "extent" clamp-bloats edge cells and needs
     # headroom.  Overflow-flag guarded either way.
     lcap = 2 * capacity if mode == "extent" else capacity

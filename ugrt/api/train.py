@@ -70,20 +70,11 @@ def train(scene, camera_specs: Sequence[cam.CameraSpec],
         latest = ckpt.latest_step(tcfg.checkpoint_dir)
         if latest is not None:
             state = ckpt.load_checkpoint(tcfg.checkpoint_dir, latest)
-            if "params" in state:  # orbax pytree form
-                p = state["params"]
-                params = dict(vertices=jnp.asarray(p["vertices"]),
-                              materials=jnp.asarray(p["materials"]))
-            else:                  # flat npz form
-                params = dict(
-                    vertices=jnp.asarray(state["params/vertices"]),
-                    materials=jnp.asarray(state["params/materials"]))
+            params = dict(vertices=jnp.asarray(state["params/vertices"]),
+                          materials=jnp.asarray(state["params/materials"]))
             start_step = latest + 1
             if verbose:
                 print(f"resumed from step {latest}")
-
-    from ugrt.trace import default_trace_backend
-    trace_backend = default_trace_backend()
 
     if tcfg.use_mesh:
         mesh = dmesh.make_mesh()
@@ -93,7 +84,7 @@ def train(scene, camera_specs: Sequence[cam.CameraSpec],
             if "fn" not in step_fns:
                 step_fns["fn"] = dmesh.sharded_train_step(
                     mesh, cfg=cfg, capacity=cap, num_lights=1,
-                    use_spot=True, trace_backend=trace_backend)
+                    use_spot=True)
             loss, gv, gm, overflow = step_fns["fn"](
                 p["vertices"], p["materials"], faces, mat_index,
                 ccs[frame], lcc, lp, targets[frame])
@@ -107,8 +98,7 @@ def train(scene, camera_specs: Sequence[cam.CameraSpec],
         def _loss(v, m, f, mi, cc, lc, l, target):
             color, overflow = render_grad.render_color(
                 v, m, f, mi, cc, lc, l, cfg=cfg,
-                capacity=cap, num_lights=1, use_spot=True,
-                trace_backend=trace_backend)
+                capacity=cap, num_lights=1, use_spot=True)
             return jnp.mean((color - target) ** 2), overflow
 
         grad_fn = jax.jit(

@@ -1,6 +1,6 @@
 """Render configuration.
 
-TPU-native re-design of the reference's compile-time constants
+Re-design of the reference's compile-time constants
 (/root/reference/main.cu.h:1-42) plus the quirk ledger from SURVEY.md §7.
 Everything here is static (hashable) so it can be a jit static argument.
 """
@@ -53,9 +53,9 @@ class RenderConfig:
     tile_x: int = 8            # NUM_THREADS_X, main.cu.h:25
     tile_y: int = 8            # NUM_THREADS_Y, main.cu.h:26
 
-    # Triangle batch per work item.  The reference streams 64 triangles per
-    # shared-memory batch (MAX_TRIANGLES, main.cu.h:28); on TPU we default to
-    # 128 to fill the 8x128 VPU lanes.
+    # Triangle batch per work item of the XLA trace path.  The reference
+    # streams 64 triangles per shared-memory batch (MAX_TRIANGLES,
+    # main.cu.h:28); the XLA path sweeps 128 per work item.
     tri_batch: int = 128
     max_rays_per_packet: int = 64  # MAX_RAYS_PER_BLOCK, main.cu.h:32
 

@@ -2,7 +2,7 @@
 
 The reference delegates its matrix math to OpenGL (`gluPerspective` +
 `gluLookAt`, /root/reference/camera.h:135-148) and reads the matrices back
-with `glGetFloatv` (camera.h:86-89).  There is no GL on TPU, so this module
+with `glGetFloatv` (camera.h:86-89).  There is no GL here, so this module
 reproduces those matrices bit-faithfully in float32, plus the reference's
 MVP product (camera.h:150-165), Gribb–Hartmann frustum plane extraction
 (camera.h:167-216) and 3-plane corner intersection (camera.h:218-253).

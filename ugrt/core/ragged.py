@@ -3,13 +3,11 @@
 The recurring pattern in this framework is expanding a ragged list (CSR
 counts/offsets) into a dense, statically-sized work array: "position p of
 the expansion belongs to segment f".  That is mathematically
-``searchsorted(inclusive_scan, p, side='right')`` — but on TPU a
-binary search is log2(F) *sequential gather passes* over every query and
-measures ~45 ms at flagship sizes, while the whole radix sort is 9 ms.
+``searchsorted(inclusive_scan, p, side='right')`` — but a binary search
+is log2(F) *sequential gather passes* over every query.
 
 Since the queries are always ``arange(capacity)`` (dense positions), the
-same result is one scatter-add + one cumsum, both O(capacity) and
-TPU-friendly:
+same result is one scatter-add + one cumsum, both O(capacity):
 
     ids[p] = (# of segment starts <= p) - 1 = max{f : starts[f] <= p}
 
@@ -33,8 +31,8 @@ def searchsorted_2level(sorted_arr, queries):
     compare-count.
 
     jnp.searchsorted lowers to a serial while loop of ~log2(N) gather
-    rounds (~2.2 ms at N=590k/Q=16k, ~11 ms at N=3.1M/Q=39k on v5e);
-    this halves the loop depth and turns the rest into dense VPU work.
+    rounds; this halves the loop depth and turns the rest into dense
+    elementwise work.
     The answer lies in row b-1 (row b's head is the first element >= q).
     """
     C = _COARSE
@@ -59,14 +57,13 @@ def dense_int_bounds(sorted_keys, num_bins: int):
     arange(num_bins + 1)) for keys in [0, num_bins).
 
     searchsorted_2level at these sizes pays a [Q, 1024] compare matrix
-    plus a log-depth serial while (7.8 ms at N=1M / Q=74k on v5e);
-    since every integer is queried, compact the RUN HEADS instead: sort
+    plus a log-depth serial while; since every integer is queried,
+    compact the RUN HEADS instead: sort
     (head ? key : num_bins, position) so the runs' (key, start) pairs
     bubble to the front ascending, scatter-min the first num_bins run
     starts into their key slots, and fill keyless bins with a reverse
     cummin (bounds[k] = start of the first run with key >= k).  One
-    N-row 2-operand radix sort + one <=num_bins-row scatter: ~3 ms at
-    the same sizes.
+    N-row 2-operand radix sort + one <=num_bins-row scatter.
     """
     n = sorted_keys.shape[0]
     pos = jnp.arange(n, dtype=jnp.int32)

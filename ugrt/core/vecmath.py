@@ -47,11 +47,10 @@ def matvec(mat_flat, vec4, xp=np):
     Matches mulMatrixVector_D (/root/reference/grid_kernel.cu:4-11):
     ``result[r] = sum_c mat[c*4+r] * vec[c]``.
     Supports batched ``vec4`` of shape [..., 4]; ``mat_flat`` is [16].
-    Written as broadcast multiply-adds, NOT ``vec4 @ m``: XLA lowers the
-    [N, 4] x [4, 4] matmul through the MXU with the contraction padded
-    4 -> 128 and the batch re-tiled, which measured ~15x slower than the
-    VPU elementwise form on v5e at N ~ 220k (scripts/profile_chain.py).
-    Summation order matches the reference's r-loop (c ascending).
+    Written as broadcast multiply-adds, NOT ``vec4 @ m``: a float32 dot
+    may run at reduced precision (TF32 on a GPU's tensor cores) and sums
+    in an order of the library's choosing.  Summation order matches the
+    reference's r-loop (c ascending).
     """
     m = xp.reshape(mat_flat, (4, 4))  # m[c, r]
     return (vec4[..., 0:1] * m[0] + vec4[..., 1:2] * m[1]
@@ -75,6 +74,8 @@ def rotate_basis(mv_flat, v3, xp=np):
 
     Matches the shader's view-space transforms which drop the translation
     column (/root/reference/shader_kernel.cu:54-66): out[r] = sum_c mv[c*4+r]*v[c].
+    Broadcast multiply-adds in the reference's order (c ascending), like
+    matvec, not a float32 dot that could run in TF32.
     """
     m = xp.reshape(mv_flat, (4, 4))[:3, :3]  # m[c, r]
-    return v3 @ m
+    return v3[..., 0:1] * m[0] + v3[..., 1:2] * m[1] + v3[..., 2:3] * m[2]

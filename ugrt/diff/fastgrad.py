@@ -1,19 +1,22 @@
-"""Gather ops with TPU-fast transposes (custom VJPs).
+"""Gather ops with structured transposes (custom VJPs).
 
-XLA transposes a gather into scatter-add, which the TPU backend lowers
-poorly: the refine-backward scatter of 3.1M pixel-corner cotangents into
-the [V, 3] vertex gradient measured 43.6 ms/step and the material-
-gradient scatter 9.1 ms/step at 1024^2 (profiler trace, scripts/
-capture_trace.py).  Both have structure XLA can't see:
+XLA transposes a gather into a scatter-add of every update into the
+table — for the refine backward 3.1M pixel-corner cotangents into the
+[V, 3] vertex gradient, and 1M pixel rows into the material gradient.
+Both have structure XLA can't see:
 
   * gather_corners — huge update count into a large table: transpose as
-    sort-by-index + prefix-sum + boundary differences (all data-oblivious
-    ops the TPU likes; the 3.1M sort costs ~5 ms).  Summation order is
-    the sorted order, deterministic across runs; segment sums computed
-    as prefix differences carry a relative error ~eps * sqrt(N_prefix /
+    sort-by-index + prefix-sum + boundary differences (data-oblivious
+    ops, no atomics).  Summation order is the sorted order,
+    deterministic across runs; segment sums computed as prefix
+    differences carry a relative error ~eps * sqrt(N_prefix /
     N_segment), negligible against the FD tolerances the grad tests use.
   * gather_rows — tiny table (materials): transpose as a one-hot matmul
-    [M, N] @ [N, C], a single MXU contraction over the pixel axis.
+    [M, N] @ [N, C], a single contraction over the pixel axis at
+    HIGHEST precision (no TF32).
+
+Whether these beat XLA's own scatter-add on a GPU has not been measured
+yet (ROADMAP B5).
 
 Forward values are exactly `table[idx]` in both cases; only the
 backward implementation changes.
@@ -63,10 +66,7 @@ def gather_face_data(vertices, faces, aux, fid):
 
     aux: [F, A] f32 (e.g. shading metadata: material id, validity) —
     appended to the [F, 9] corner table so ONE [N, 9+A] gather serves
-    both refine and shading (a separate [N, 2] meta gather regressed
-    1.9 -> 15.3 ms/step when XLA stopped staging its table in fast
-    memory; this shape keeps everything in the gather XLA already
-    stages).  Returns (corners [..., 3, 3], aux_rows [..., A]).  The
+    both refine and shading.  Returns (corners [..., 3, 3], aux_rows [..., A]).  The
     VJP treats aux as constant (integer-derived metadata).
     """
     tbl = jnp.concatenate(
@@ -98,10 +98,9 @@ def gather_face_corners(vertices, faces, fid):
     nothing to the backward).
 
     Forward: one [F, 9] per-face corner table (F ~ 75k rows) + one wide
-    row gather at pixel width — TPU row gathers cost per ROW, so this is
-    ~3x cheaper than gathering 3 corner rows per pixel.
+    row gather at pixel width instead of 3 corner rows per pixel.
 
-    Backward (round-5, VERDICT r4 #4): accumulate pixel cotangents at
+    Backward: accumulate pixel cotangents at
     FACE granularity first — sort (fid, pixel) pairs (1M x 2 operands, vs
     the 3.1M x 4-operand corner-index sort this replaces), one wide row
     gather of the 9-wide cotangents through the permutation, prefix-sum +
@@ -134,9 +133,7 @@ def _face_corners_bwd(res, g):
     gf = g.reshape(n, 9)
     # Sort the 9 cotangent columns along as radix-sort PAYLOADS: the
     # permutation-gather alternative (sort (fid, pix) then gf[spix])
-    # emitted a transposed-layout [n, 9] gather XLA runs at 6.5 ms/step
-    # at 1024^2; the 10-operand sort is ~4 ms and the column slices of
-    # gf are contiguous in its transposed layout.
+    # emits a transposed-layout [n, 9] gather.
     s = jax.lax.sort((flat_fid,) + tuple(gf[:, j] for j in range(9)),
                      num_keys=1)
     sfid = s[0]

@@ -30,7 +30,7 @@ from ugrt.trace import shadow as tshadow
 def render_color(vertices, materials, faces, mat_index, camcoords,
                  light_camcoords, light_position, *, cfg: RenderConfig,
                  capacity: int, num_lights: int, use_spot: bool,
-                 chunk_size: int = 256, trace_backend: str = "xla"):
+                 chunk_size: int = 256, trace_backend: str | None = None):
     """(Float RGB [H, W, 3] image, overflow []) — differentiable w.r.t.
     vertices and materials.  Matches the u8 reference image up to
     quantization.  ``overflow`` is true when any static capacity (pair
@@ -53,7 +53,7 @@ def render_color(vertices, materials, faces, mat_index, camcoords,
     mode = cfg.light_grid_mode
     # "windowed" spreads geometry over the full grid: measured pair
     # counts are 0.65x capacity at 74k faces and 0.80x at 51k on the
-    # flagship interior scenes (ADVICE r4 #4), so the 1x budget holds
+    # flagship interior scenes, so the 1x budget holds
     # with >=20% slack; "extent" clamp-bloats edge cells and needs
     # headroom.  Overflow-flag guarded either way.
     lcap = 2 * capacity if mode == "extent" else capacity
@@ -99,7 +99,7 @@ def render_and_grad(vertices, materials, faces, mat_index, camcoords,
                     light_camcoords, light_position, target, *,
                     cfg: RenderConfig, capacity: int, num_lights: int,
                     use_spot: bool, chunk_size: int = 256,
-                    trace_backend: str = "xla"):
+                    trace_backend: str | None = None):
     """Image + MSE-to-target loss + gradients w.r.t. (vertices, materials).
 
     The canonical inverse-rendering step: everything (grid rebuild, trace,

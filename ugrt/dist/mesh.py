@@ -1,24 +1,22 @@
 """Multi-chip sharding: shard_map over a ray/tile mesh axis.
 
 The reference is single-GPU, single-process (SURVEY.md §2 parallelism
-inventory); the distributed axis is a new design per BASELINE.json:
-"shard rays/tiles ... across a multi-host v5p pod slice, all-reducing
-scene-parameter gradients".
+inventory); the distributed axis is a new design: shard rays/tiles
+across devices and all-reduce the scene-parameter gradients.
 
 Design:
   * mesh axis "rays" shards the image along tile COLUMNS (bx) — cell ids
     are x-major (bx * grid_y + by, grid_kernel.cu:322), so each device
     owns a contiguous cell range and a contiguous image strip;
   * the scene (vertices/faces/materials) is replicated; each device
-    builds the (identical) grid locally — grid build is O(F + P log P),
-    a few percent of trace cost, and replicating it avoids an all-gather
-    of CSR arrays over ICI;
+    builds the (identical) grid locally — grid build is O(F + P log P)
+    and replicating it avoids an all-gather of CSR arrays;
   * forward is embarrassingly parallel over strips; gradients of the
-    replicated scene parameters are combined with one psum over ICI
-    (overlappable with backward compute by XLA's async collectives).
+    replicated scene parameters are combined with one psum (which XLA
+    hands to NCCL on GPUs).
 
 Multi-host: call jax.distributed.initialize() before building the mesh;
-everything below is host-count agnostic (jax.devices() spans the slice).
+everything below is host-count agnostic (jax.devices() spans all hosts).
 """
 
 from __future__ import annotations
@@ -48,13 +46,13 @@ def _strip_color(vertices, materials, faces, mat_index, camcoords,
                  light_camcoords, light_position, *, cfg: RenderConfig,
                  capacity: int, num_lights: int, use_spot: bool,
                  n_bx: int, axis_name: str, chunk_size: int,
-                 trace_backend: str = "xla", interpret: bool = False):
+                 trace_backend: str | None = None,
+                 interpret: bool = False):
     """Per-device body: render this device's tile-column strip,
     differentiable in (vertices, materials).
 
-    trace_backend/interpret select the fused Pallas kernels (the
-    multi-chip hot path must not be pinned to the slow XLA sweep —
-    VERDICT r2 #6); interpret=True runs them in interpreter mode for
+    trace_backend None is the platform's default (the fused kernel on a
+    GPU); interpret=True runs the kernel in the Pallas interpreter for
     CPU-mesh tests.  NOTE: the shadow pass sorts ALL rays of the full
     image in the single-device path; per-strip it sorts only this
     device's rays — results are identical (cell masking is per-ray)."""
@@ -119,7 +117,8 @@ def _strip_color(vertices, materials, faces, mat_index, camcoords,
 
 def sharded_render(mesh: Mesh, *, cfg: RenderConfig, capacity: int,
                    num_lights: int, use_spot: bool,
-                   chunk_size: int = 256, trace_backend: str = "xla",
+                   chunk_size: int = 256,
+                   trace_backend: str | None = None,
                    interpret: bool = False):
     """Returns a jitted function rendering the full image across the mesh:
     (image [H, W, 3] f32 sharded along W, overflow [] bool).
@@ -154,11 +153,12 @@ def sharded_render(mesh: Mesh, *, cfg: RenderConfig, capacity: int,
 
 def sharded_train_step(mesh: Mesh, *, cfg: RenderConfig, capacity: int,
                        num_lights: int, use_spot: bool,
-                       chunk_size: int = 256, trace_backend: str = "xla",
+                       chunk_size: int = 256,
+                       trace_backend: str | None = None,
                        interpret: bool = False):
     """Returns a jitted step: (verts, mats, ..., target) ->
     (loss, grad_verts, grad_mats, overflow) with gradients all-reduced
-    (psum) over the mesh — BASELINE's gradient all-reduce over ICI.
+    (psum) over the mesh.
 
     target: full [H, W, 3] image (sharded along W like the render).
     overflow is the mesh-wide OR of capacity flags; callers must raise
@@ -187,16 +187,9 @@ def sharded_train_step(mesh: Mesh, *, cfg: RenderConfig, capacity: int,
             loss_fn, argnums=(0, 1), has_aux=True)(vertices, materials)
         loss = jax.lax.psum(loss, axis)
         overflow = jax.lax.pmax(overflow.astype(jnp.int32), axis) > 0
-        # Explicit gradient all-reduce over the mesh (ICI) — BASELINE's
-        # north-star collective.  (With check_vma=False the implicit
-        # psum of unvaried-primal cotangents does not happen, so it must
-        # be spelled out.)  Measured placement
-        # (scripts/trace_psum_overlap.py, 8-device mesh profiler trace):
-        # XLA schedules the vertex-grad all-reduce at 95..100% of the
-        # step — the tail of backward — with ~42% of its span covered by
-        # OTHER devices' still-running backward compute (skew), not by
-        # intra-device async overlap; overlapping it within a device
-        # would require microbatching tiles through the backward.
+        # Explicit gradient all-reduce over the mesh.  (With
+        # check_vma=False the implicit psum of unvaried-primal cotangents
+        # does not happen, so it must be spelled out.)
         gv, gm = grads
         gv = jax.lax.psum(gv, axis)
         gm = jax.lax.psum(gm, axis)

@@ -133,9 +133,9 @@ def _expand_and_sort(ranges, gz, cfg: RenderConfig, capacity: int,
     value list matches CUDPP's radix-sorted output order exactly.
 
     align > 1 inserts per-cell padding pairs (face -1) so every cell
-    segment STARTS at a multiple of `align` — the DMA-aligned layout the
-    Pallas tracer consumes, produced natively by the sort instead of a
-    post-hoc scatter.  cell_count stays the REAL count (padding rows are
+    segment STARTS at a multiple of `align` (an aligned layout produced
+    natively by the sort instead of a post-hoc scatter; every tracer
+    rejects the padding pairs).  cell_count stays the REAL count (padding rows are
     masked by it); cell_offset points into the padded layout.
     """
     num_cells = cfg.num_cells
@@ -152,9 +152,8 @@ def _expand_and_sort(ranges, gz, cfg: RenderConfig, capacity: int,
     face_c = segment_ids_from_starts(offsets, capacity)
     valid = p < total
 
-    # Expansion gathers are [capacity]-wide and show up at ~3.5 ms each
-    # at flagship sizes (profiler trace), so gather ONE packed per-face
-    # row (offset, size_y, base) instead of 5 separate fields.
+    # Expansion gathers are [capacity]-wide, so gather ONE packed
+    # per-face row (offset, size_y, base) instead of 5 separate fields.
     # base = key(gxmin, gymin, gz); key(i, j) = base + (i*grid_y + j)*NS.
     base = (((ranges["gxmin"] * cfg.grid_y + ranges["gymin"])
              * cfg.num_slabs) + gz).astype(jnp.int32)
@@ -219,8 +218,8 @@ def _expand_and_sort(ranges, gz, cfg: RenderConfig, capacity: int,
     else:
         # CSR from the SORTED keys: offsets[c] = # pairs with key < c —
         # a two-level search (ugrt.core.ragged.searchsorted_2level)
-        # instead of the 590k scatter-add histogram (~20 ms serial on
-        # TPU) or jnp.searchsorted's while loop (~2.2 ms).
+        # instead of a 590k scatter-add histogram or jnp.searchsorted's
+        # serial while loop.
         from ugrt.core.ragged import searchsorted_2level
         bounds = searchsorted_2level(
             sorted_key, jnp.arange(num_cells + 1, dtype=jnp.int32)

@@ -1,8 +1,8 @@
 """CPU oracle: a NumPy re-implementation of the reference's exact per-frame
 semantics (SURVEY.md §3), used as the allclose target for every stage of the
-TPU path and for finite-difference gradient checks.
+device path and for finite-difference gradient checks.
 
-Unlike the TPU path (sort/searchsorted/segment-min machinery), the oracle
+Unlike the device path (sort/searchsorted/segment-min machinery), the oracle
 builds its CSR grid with naive per-face Python loops and traces per cell —
 a genuinely independent algorithm over the same math, so agreement
 cross-validates the vectorized implementation.

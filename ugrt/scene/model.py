@@ -1,6 +1,6 @@
 """Scene model: flat arrays + materials + animation.
 
-TPU-native equivalent of Model (/root/reference/scene.h:13-57): flattens
+Equivalent of Model (the reference's scene.h:13-57): flattens
 the parsed OBJ into numpy arrays ready to become jnp device arrays, plus
 the custom (non-MTL) material-file parser ``some_material``
 (scene.h:370-439) and the procedural vertex-rotation animation

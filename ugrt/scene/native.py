@@ -1,30 +1,48 @@
 """ctypes bindings for the native runtime (native/ugrt_native.cpp).
 
-Fast-path scene loading and PPM writing; falls back to the pure-Python
-implementations when the shared library has not been built.  Build with:
-    make -C native
+Fast-path scene loading and PPM writing.  The shared library is built
+from the sources at first use (``make -C native``); without a C++
+compiler the callers fall back to the pure-Python implementations.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import subprocess
 
 import numpy as np
 
-_LIB_PATH = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.dirname(os.path.abspath(__file__)))), "native",
-    "libugrt_native.so")
+_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.dirname(os.path.abspath(__file__)))), "native")
+_LIB_PATH = os.path.join(_NATIVE_DIR, "libugrt_native.so")
 
 _lib = None
+_build_failed = False
+
+
+def _build() -> bool:
+    """Build the library with native/Makefile.  Each process builds under
+    its own name and renames the result into place, so processes that
+    build at once never load a half-written file."""
+    tmp = f"libugrt_native.so.{os.getpid()}.tmp"
+    try:
+        subprocess.run(["make", "-s", "-C", _NATIVE_DIR, f"OUT={tmp}"],
+                       check=True, capture_output=True)
+    except (OSError, subprocess.CalledProcessError):
+        return False
+    os.replace(os.path.join(_NATIVE_DIR, tmp), _LIB_PATH)
+    return True
 
 
 def _load():
-    global _lib
+    global _lib, _build_failed
     if _lib is not None:
         return _lib
     if not os.path.exists(_LIB_PATH):
-        return None
+        if _build_failed or not _build():
+            _build_failed = True
+            return None
     lib = ctypes.CDLL(_LIB_PATH)
     lib.ugrt_parse_obj.restype = ctypes.c_void_p
     lib.ugrt_parse_obj.argtypes = [ctypes.c_char_p]

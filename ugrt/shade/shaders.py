@@ -58,15 +58,11 @@ def shade_core(primary, shade_camcoords, light_position, primary_eye,
     if xp is not np:
         from ugrt.diff.fastgrad import gather_rows
 
-        # TPU row gathers cost per ROW, not per byte (a 1-wide 1M int
-        # gather measured 7.5 ms where a 6-wide f32 one was 1.9), so
-        # fetch the per-pixel material id + validity as ONE wide f32
-        # row gather from a per-face table (ids < 2^24, exact in f32).
-        # When the refine pass already carried the meta through its
-        # corner gather (primary["aux"], see refine_primary /
-        # gather_face_data), reuse it — the standalone meta gather
-        # regressed to 15 ms/step when XLA stopped fast-memory-staging
-        # its table.
+        # Fetch the per-pixel material id + validity as ONE f32 row
+        # gather from a per-face table (ids < 2^24, exact in f32).  When
+        # the refine pass already carried the meta through its corner
+        # gather (primary["aux"], see refine_primary /
+        # gather_face_data), reuse it instead of gathering again.
         if "aux" in primary:
             rows = primary["aux"]                        # [..., 2]
         else:
@@ -75,7 +71,7 @@ def shade_core(primary, shade_camcoords, light_position, primary_eye,
         idx = rows[..., 0].astype(xp.int32)
         valid = (tri >= 0) & (rows[..., 1] > 0)
         # gather_rows' custom VJP turns the material-gradient scatter
-        # (9.1 ms/step at 1024^2) into a one-hot MXU contraction.
+        # into a one-hot contraction at HIGHEST precision.
         mats = gather_rows(materials,
                            xp.clip(idx, 0, num_materials - 1))
     else:

@@ -1,8 +1,14 @@
 def default_trace_backend() -> str:
-    """Production backend selection: the fused Pallas kernels on TPU
-    (the only place Mosaic compiles them), the XLA work-item pipeline
-    elsewhere (and as the parity oracle everywhere).  VERDICT r3 #4: no
-    TPU path may default to the slow XLA sweep."""
+    """The trace backend for the platform JAX runs on: the fused Pallas
+    range sweep (ugrt.trace.pallas_tracer, compiled through Triton) on a
+    GPU, the XLA work-item pipeline on the CPU.  The XLA path is also the
+    reference the kernel is tested against everywhere."""
     import jax
 
-    return "pallas" if jax.default_backend() == "tpu" else "xla"
+    platform = jax.default_backend()
+    if platform == "gpu":
+        return "pallas"
+    if platform == "cpu":
+        return "xla"
+    raise RuntimeError(f"no trace backend for platform {platform!r}")
+

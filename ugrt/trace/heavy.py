@@ -9,7 +9,7 @@ buffer to fit); winner selection combines via (t, face-id) lex-min which
 equals the reference's strict-< scan over its face-ascending merged cell
 list (trace_kernel.cu:181-204 with CUDPP's stable sort).
 
-TPU-native math: all primary rays share one origin (the eye), and all of
+Math: all primary rays share one origin (the eye), and all of
 a light's shadow rays share the light position, so Möller–Trumbore
 collapses to three dot products of the ray direction with per-face
 constant vectors plus one per-face scalar:
@@ -19,8 +19,8 @@ constant vectors plus one per-face scalar:
     qvec = tvec x e1         v*det = d.qvec                  = d.c
     t*det = e2.qvec          = k            (constant per face)
 
-i.e. [det, u', v'] = d @ [a b c]^T — a rank-3 contraction the VPU/MXU
-eats, at ~1/3 the flops of the direct form.  v' and k are bitwise equal
+i.e. [det, u', v'] = d @ [a b c]^T — a rank-3 contraction (written as
+broadcast multiply-adds) at ~1/3 the flops of the direct form.  v' and k are bitwise equal
 to the reference's operation order; det and u are the same real-number
 value with different f32 rounding (scalar triple-product reassociation),
 so winners can differ only where two candidates are within an ulp —

@@ -1,75 +1,37 @@
-"""Fused Pallas TPU kernels for the work-item intersection sweeps (v4).
+"""Fused range sweeps for the primary and shadow passes (Pallas, Triton).
 
-TPU analog of the reference's shared-memory inner loops (rckernel_alpha,
-/root/reference/trace_kernel.cu:147-215 and mod_light_rckernel,
-light_kernel.cu:120-202): where a CUDA block stages 64 triangles into
-shared memory and tests 64 rays against them, a kernel program here keeps
-a [128 triangles x 128 rays] Moller-Trumbore block entirely in VMEM.
+The reference traces one CUDA block per 8x8 ray packet and streams the
+packet's cell list through shared memory in 64-triangle batches
+(the reference's trace_kernel.cu:147-215, light_kernel.cu:120-202).  The
+kernels here keep that shape: one Triton program takes one block of
+``RAYS`` rays and loops over its own triangle ranges ``CHUNK`` triangles
+at a time, keeping the per-ray result in registers.  Every program has
+two ranges:
 
-Design (v4 — scalar-prefetch window scheduling + in-kernel combine):
+  * ``[lo, hi)`` of a grid's cell-sorted pair table, in the direct
+    Möller–Trumbore form (tvec, e1, e2 per pair).  A primary program is
+    one cell (one 8x8 tile of one slab), so the range is exactly that
+    cell's list.  A shadow program is a block of rays sorted by light
+    cell: its cells are one contiguous key range, so its pairs are one
+    contiguous range too, and a ray only accepts pairs of its own cell
+    (key test).
+  * ``[hlo, hhi)`` of the heavy-face table in the coefficient form of
+    ugrt.trace.heavy, where the footprint-box test takes the place of
+    the key test.
 
-  * Triangle pair data is packed ONCE per grid into fixed 128-triangle
-    *windows* of the sorted pair array: tri_windows [NW, 128, 16]
-    (window, triangle-sublane, component-lane) with components
-    tvec(0:3), e1(3:6), e2(6:9), cell key(9).  NW = capacity // 128.
-    This is a reshape of the sorted pair order — NOT a per-work-item
-    gather.
-  * Ray data is packed into fixed 128-ray *blocks* of the natural ray
-    stream: rays_blocks [NB + 1, 8, 128] (block, component-sublane,
-    ray-lane); last block is an all-dead guard.  For primary rays the
-    stream is tile order (two 64-ray tiles per block); for shadow rays
-    it is the cell-sorted order.
-  * A *work item* is (ray block b, tri window w): every ray of block b
-    is tested against every triangle of window w, masked by cell-key
-    equality (component 9 of the window vs the ray's own cell row), so
-    foreign triangles in boundary windows and padding never hit.  The
-    scheduler emits, per ray block, the windows overlapping the pair-
-    array span of the block's cells — contiguous because cells are
-    sorted (grid/build.py CSR) — block-major, so all items of a block
-    are consecutive.  Blocks with no pairs emit one dummy item (key
-    masking rejects everything) so every output block is initialized.
-  * Both sides are fetched by Mosaic's automatic multi-buffered pipeline
-    via PrefetchScalarGridSpec: the per-item (window, block) ids are
-    scalar-prefetch operands consumed by the BlockSpec index maps.
-    Consecutive items share the ray block, which Mosaic recognizes and
-    skips the redundant copy.
-  * The cross-item combine happens IN the kernel: the output block is
-    indexed by the item's ray block id, so consecutive items accumulate
-    into the same VMEM-resident [1, 128] row ((t, face) lex-min for
-    primary, occlusion OR for shadow) which Mosaic flushes when the
-    block id advances.  Outputs are [NB + 1, 128] — v3's [wcap, 128]
-    per-item outputs plus XLA segment_min/segment_max scatters (the
-    dominant overhead at 1024^2: ~100k-row scatters per pass) are gone.
-    The primary kernel emits winner FACE ids directly (face id packed
-    as window component 10) so no post-hoc winner-index gather exists.
-  * PRIMARY heavy faces (huge-footprint geometry, see ugrt.grid.build)
-    are swept by a dedicated dense kernel (heavy_primary_sweep): the
-    whole coefficient table stays VMEM-resident, each grid step covers
-    MB ray blocks, and one window loop per step covers the LIVE window
-    count (SMEM scalar).  SHADOW heavy faces instead ride the normal
-    scheduled sweep as appended footprint-box windows
-    (pack_heavy_coeff_windows + make_windows_with_heavy) — every
-    dedicated-kernel loop structure floored at 17-36 ms/step on Mosaic
-    while overhead.  Measured variants that LOST on v5e, kept as design
-    notes: window axis as a grid dimension (+16 ms — per-step
-    overhead), one fused lax loop with all-MB carries (+17 ms — carry
-    traffic), [MB*128]-tall bodies (+6 ms at MB=2, +11 ms at MB=8),
-    per-mb fori with window bitmask conds (17.4 ms), per-group fori
-    over a window range with scratch accumulation (26.6 ms).
+Primary programs keep the (t, face) lex-min, shadow programs the
+occlusion OR.  Both forms repeat the operation order of the XLA path
+(ugrt.trace.primary.moller_trumbore_t, the shadow chunk body,
+ugrt.trace.heavy), so results agree with it.
 
-PRIMARY operation order inside the block is IDENTICAL to the XLA path's
-moller_trumbore_t (a*b - c*d cross products, inv_det multiply), just
-with transposed broadcasting — primary results are bitwise equal to the
-XLA backend, which the parity tests assert exactly.  The winner
-tie-break (strictly-smaller-t update over ascending windows, first-min
-sublane within a window) equals the XLA path's (t, pair-index) lex-min.
-The SHADOW sweep uses the coefficient form (pack_tri_windows_coeff),
-whose f32 rounding differs from the XLA direct form by ulps: a ray
-within an ulp of a u/v accept boundary can flip, so shadow parity is
-asserted as a small mismatch bound, not bitwise.
+Tables are component-major ([components, pairs]) so each component of a
+chunk is one contiguous load, and are padded by ``CHUNK`` columns:
+``pl.ds`` reads a fixed-size chunk, masked past ``hi``, and the padding
+keeps that chunk inside the array (the interpreter clamps an
+out-of-bounds slice instead of masking it).
 
-The kernels are combinatorial-forward only; gradients flow through
-ugrt.trace.refine as usual.
+The kernels are combinatorial forward only; gradients flow through
+ugrt.trace.refine.
 """
 
 from __future__ import annotations
@@ -79,808 +41,264 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 from ugrt.config import RenderConfig
-from ugrt.core.ragged import segment_ids_from_starts
-from ugrt.grid.build import DeviceGrid
 
 _BIG = 3.0e38  # plain float: a jnp scalar would be a captured const
 _MAXI = 2**31 - 1
-WIN = 128      # default triangles per window (pair_capacity multiple)
-NCOMP = 16     # component lanes per triangle row (11 used, 16 for tiling)
-# Window size trade-off: per-item fixed overhead (grid step + extracts)
-# is ~0.5 us against ~0.85 us of [128x128] compute, so long-span sweeps
-# (shadow: ~8.5 windows/block) amortize it with wider windows; primary
-# spans are ~1 window, where wider windows would just add masked waste.
+RAYS = 64       # rays per program: one 8x8 tile
+CHUNK = 32      # triangles per loop step
+_PARAMS = plt.CompilerParams(num_warps=4, num_stages=2)
 
 
-def pack_tri_windows(vertices, faces, grid: DeviceGrid, origin,
-                     win: int = WIN):
-    """[NW, win, 16] windowed pair data (tri-sublane, component-lane).
+def _pad_cols(x, value):
+    return jnp.pad(x, ((0, 0), (0, CHUNK)), constant_values=value)
 
-    Components 0:3 tvec = origin - v0, 3:6 e1, 6:9 e2 — the staging of
-    trace_kernel.cu:149-175 (origin = eye) / light_kernel.cu:144-146
-    (origin = light); component 9 = the pair's cell key as f32 (exact
-    below 2^24); component 10 = the pair's FACE id as f32, so the
-    primary kernel can emit the winner face directly (the post-hoc
-    sorted_faces[winner_pair] gather costs 7.5 ms/frame at 1024^2).
-    Padding pairs (face -1) are zeroed so the determinant test rejects
-    them regardless of their key.
+
+def pack_pairs(vertices, faces, grid, origin):
+    """(data f32 [9, P + CHUNK], tags int32 [2, P + CHUNK]) for a grid.
+
+    data rows: tvec = origin - v0 (0:3), e1 (3:6), e2 (6:9) — the staging
+    of trace_kernel.cu:149-175 (origin = eye) and light_kernel.cu:144-146
+    (origin = light).  tags rows: face id, cell key.  Padding pairs
+    (face -1) get zero data, so the determinant test rejects them.
     """
-    cap = grid.sorted_faces.shape[0]
     fidx = jnp.clip(grid.sorted_faces, 0, faces.shape[0] - 1)
-    # Per-FACE staging first ([F, 9] — 73k rows), then ONE row gather at
-    # pair width: the two-level vertices[faces[fidx]] gather at [cap]
-    # width cost ~5 ms/frame in layout copies and reshapes.
-    fv = vertices[faces]                 # [F, 3, 3]
+    fv = vertices[faces]                                   # [F, 3, 3]
     v0 = fv[:, 0]
-    e1 = fv[:, 1] - v0
-    e2 = fv[:, 2] - v0
-    tvec = origin[None, :] - v0
-    per_face = jnp.concatenate([tvec, e1, e2], axis=1)    # [F, 9]
-    data = per_face[fidx]                                 # [cap, 9]
-    data = jnp.where((grid.sorted_faces >= 0)[:, None], data, 0.0)
-    key = grid.sorted_keys.astype(jnp.float32)[:, None]
-    face = grid.sorted_faces.astype(jnp.float32)[:, None]
-    out = jnp.concatenate(
-        [data, key, face, jnp.zeros((cap, NCOMP - 11), jnp.float32)],
-        axis=1)
-    pad = -cap % win
-    if pad:
-        out = jnp.pad(out, ((0, pad), (0, 0)))
-    return out.reshape((cap + pad) // win, win, NCOMP)
+    per_face = jnp.concatenate(
+        [origin[None, :] - v0, fv[:, 1] - v0, fv[:, 2] - v0], axis=1)
+    data = jnp.where((grid.sorted_faces >= 0)[None, :],
+                     per_face.T[:, fidx], 0.0)             # [9, P]
+    tags = jnp.stack([grid.sorted_faces, grid.sorted_keys])
+    return _pad_cols(data, 0.0), _pad_cols(tags.astype(jnp.int32), -1)
 
 
-def pack_tri_windows_coeff(vertices, faces, grid: DeviceGrid, origin,
-                           win: int = WIN):
-    """[NW, win, 16] windowed SHADOW pair data in coefficient form.
+def pack_heavy(co):
+    """(data f32 [10, H + CHUNK], tags int32 [5, H + CHUNK]) for the
+    heavy list (ugrt.trace.heavy.HeavyCoeffs; None: no heavy list).
 
-    Möller–Trumbore against a fixed origin collapses to three dot
-    products of the ray direction with per-triangle constant vectors
-    plus one per-triangle scalar (see ugrt.trace.heavy docstring):
-
-        det   = d.(e2 x e1)         = d.a      components 0:3
-        u*det = d.(e2 x tvec)       = d.b      components 3:6
-        v*det = d.(tvec x e1)       = d.c      components 6:9
-        t*det = e2.(tvec x e1)      = k        component  9
-
-    component 10 = cell key; components 11:15 = the triangle's cell
-    FOOTPRINT box (empty (1,0,1,0) for normal pairs — used only by
-    heavy windows, see pack_heavy_coeff_windows; the kernel accepts a
-    candidate when key == ray cell OR the ray's (gx, gy) lies in the
-    box).  ~40 VPU ops per [win x 128] item instead of ~55 for the
-    direct form.  det/u/v/t equal the direct form as real numbers with
-    different f32 rounding (triple-product reassociation); the shadow
-    decision has a shadow_epsilon = 1e-3 margin, so ulp-level
-    differences cannot realistically flip a pixel — same documented
-    divergence class as ugrt.trace.heavy.  Padding pairs (face -1) zero
-    a, so det = 0 rejects them.
+    data rows: a (0:3), b (3:6), c (6:9), k (9).  tags rows: face id and
+    the footprint box (gxmin, gxmax, gymin, gymax).  Only ``[0,
+    heavy_count)`` is ever read, so dead slots need no masking here.
     """
-    cap = grid.sorted_faces.shape[0]
-    fidx = jnp.clip(grid.sorted_faces, 0, faces.shape[0] - 1)
-    # Coefficients at FACE width ([F] — 73k rows), then one row gather
-    # at pair width (see pack_tri_windows).
-    fv = vertices[faces]                 # [F, 3, 3]
-    v0 = fv[:, 0]
-    e1 = fv[:, 1] - v0
-    e2 = fv[:, 2] - v0
-    tvec = origin[None, :] - v0
-
-    a = _coeff_cross(e2, e1)
-    b = _coeff_cross(e2, tvec)
-    c = _coeff_cross(tvec, e1)
-    k = jnp.sum(e2 * c, axis=1, keepdims=True)
-    per_face = jnp.concatenate([a, b, c, k], axis=1)  # [F, 10]
-    data = per_face[fidx]                             # [cap, 10]
-    data = jnp.where((grid.sorted_faces >= 0)[:, None], data, 0.0)
-    key = grid.sorted_keys.astype(jnp.float32)[:, None]
-    empty_box = jnp.broadcast_to(
-        jnp.asarray([1.0, 0.0, 1.0, 0.0], jnp.float32), (cap, 4))
-    out = jnp.concatenate(
-        [data, key, empty_box,
-         jnp.zeros((cap, NCOMP - 15), jnp.float32)], axis=1)
-    pad = -cap % win
-    if pad:
-        out = jnp.pad(out, ((0, pad), (0, 0)))
-        # Padding rows keep the empty box too (zero-padding would give
-        # the box (0,0,0,0), which CONTAINS cell (0, 0)).
-        idx = jnp.arange(cap + pad) >= cap
-        fix = jnp.zeros((cap + pad, NCOMP), jnp.float32).at[:, 11].set(
-            1.0).at[:, 13].set(1.0)
-        out = jnp.where(idx[:, None], fix, out)
-    return out.reshape((cap + pad) // win, win, NCOMP)
+    if co is None:
+        data = jnp.zeros((10, 0), jnp.float32)
+        tags = jnp.zeros((5, 0), jnp.int32)
+    else:
+        data = jnp.concatenate([co.a, co.b, co.c, co.k[:, None]],
+                               axis=1).T
+        tags = jnp.concatenate([co.face[:, None], co.ranges], axis=1).T
+    return _pad_cols(data, 0.0), _pad_cols(tags.astype(jnp.int32), -1)
 
 
-def _coeff_cross(p, q):  # cross product [F, 3]
-    return jnp.stack([p[:, 1] * q[:, 2] - p[:, 2] * q[:, 1],
-                      p[:, 2] * q[:, 0] - p[:, 0] * q[:, 2],
-                      p[:, 0] * q[:, 1] - p[:, 1] * q[:, 0]], axis=1)
+def _chunk(ref, rows, start, live, other):
+    """Rows of a component-major table for one chunk, each [1, CHUNK]."""
+    return [plt.load(ref.at[r, pl.ds(start, CHUNK)], mask=live,
+                     other=other)[None, :] for r in rows]
 
 
-def pack_heavy_coeff_windows(co, win: int = WIN):
-    """[NWH, win, 16] HEAVY shadow windows in the pack_tri_windows_coeff
-    layout, appended to the normal window table so the scheduled shadow
-    sweep covers heavy faces too (no dedicated heavy kernel): key
-    (comp 10) = -2 so the cell-key test never matches; the footprint
-    box (comps 11:15) admits exactly the rays whose cell the face's
-    clip footprint covers — the same candidate set the reference's
-    every-cell duplication yields (frustum_grid.h:254).  Apply
-    spatial_reorder_heavy first so each window's box union stays tight
-    for heavy_window_rects scheduling.  Dead slots zero ``a`` (det = 0)
-    and keep the empty box.
-    """
-    H = co.k.shape[0]
-    pad = -H % win
-    live = co.live
+def _loop(lo, hi, body, carry):
+    """fori over the CHUNK-wide steps of [lo, hi); body(start, live, c)."""
+    lane = jnp.arange(CHUNK, dtype=jnp.int32)
 
-    def p3(m):
-        m = jnp.where(live[:, None], m, 0.0)
-        return jnp.pad(m, ((0, pad), (0, 0)))
+    def step(i, c):
+        start = lo + i * CHUNK
+        return body(start, start + lane < hi, c)
 
-    k1 = jnp.pad(jnp.where(live, co.k, 0.0), (0, pad))[:, None]
-    box = co.ranges.astype(jnp.float32)
-    empty = jnp.broadcast_to(
-        jnp.asarray([1.0, 0.0, 1.0, 0.0], jnp.float32), box.shape)
-    box = jnp.where(live[:, None], box, empty)
-    box = jnp.pad(box, ((0, pad), (0, 0)))
-    if pad:
-        idx = jnp.arange(H + pad) >= H
-        fix = jnp.broadcast_to(
-            jnp.asarray([1.0, 0.0, 1.0, 0.0], jnp.float32),
-            (H + pad, 4))
-        box = jnp.where(idx[:, None], fix, box)
-    key = jnp.full((H + pad, 1), -2.0, jnp.float32)
-    out = jnp.concatenate(
-        [p3(co.a), p3(co.b), p3(co.c), k1, key, box,
-         jnp.zeros((H + pad, NCOMP - 15), jnp.float32)], axis=1)
-    return out.reshape((H + pad) // win, win, NCOMP)
+    n = jnp.maximum(hi - lo + (CHUNK - 1), 0) // CHUNK
+    return jax.lax.fori_loop(0, n, step, carry)
 
 
-def make_windows(lo, hi, wcap: int, nwin_blocks: int, win: int = WIN):
-    """Expand per-ray-block pair spans [lo, hi) into a flat window list.
-
-    lo/hi: [NB] int32 offsets into the sorted pair array.  Returns
-    (win_idx [wcap], win_block [wcap], overflow [], total []): item u covers
-    window win_idx[u] of tri_windows for ray block win_block[u].  A
-    block with hi <= lo still emits ONE item (key masking rejects all
-    its triangles) so its output row gets initialized.  Items are
-    block-major: each block's items are consecutive — the kernels
-    detect a block's first item as blk[i] != blk[i-1] (their output
-    init point).  Trailing dead items get win_block = NB (the guard
-    block).  nwin_blocks = NW bound for clipping.
-    """
-    nb = lo.shape[0]
-    w0 = lo // win
-    nwin = jnp.where(hi > lo, (hi - 1) // win - w0 + 1, 1)
-    starts = jnp.cumsum(nwin) - nwin
-    total = starts[-1] + nwin[-1]
-    overflow = total > wcap
-
-    u = jnp.arange(wcap, dtype=jnp.int32)
-    b = segment_ids_from_starts(starts, wcap)
-    valid = u < total
-    win_idx = jnp.clip(w0[b] + (u - starts[b]), 0, nwin_blocks - 1)
-    win_block = jnp.where(valid, b, nb).astype(jnp.int32)
-    # total is returned for DYNAMIC sweep grids: the pallas grid size is
-    # a traced scalar, so the static-capacity padding tail is never
-    # scheduled at all (a skipped-but-scheduled dead item still costs
-    # ~0.35 us of Mosaic step overhead; ~40k of them measured ~15 ms).
-    return (jnp.where(valid, win_idx, 0).astype(jnp.int32),
-            win_block, overflow,
-            jnp.minimum(total, wcap).astype(jnp.int32))
-
-
-def make_heavy_windows(hlo, hhi, wcap: int, nwin_heavy: int):
-    """Block-major schedule over per-block HEAVY window ranges.
-
-    hlo/hhi: [NB] window ranges from heavy_block_window_range (empty
-    when hlo > hhi).  Unlike make_windows, a block with an empty range
-    emits NO item — callers must mask the output rows of such blocks
-    (their accumulators are never initialized): sh = where(nh > 0, sh,
-    0).  Returns (win_idx [wcap], win_block [wcap], nh [NB],
-    overflow [], total []).  wcap must stay WELL below NB * nwin_heavy:
-    the two schedule arrays are scalar-prefetch operands and SMEM is
-    1 MB (a hard-bound capacity at 16 windows x 8k blocks compiled but
-    exceeded SMEM by 144 bytes at 1024^2).
-    """
-    nb = hlo.shape[0]
-    nh = jnp.clip(hhi - hlo + 1, 0, nwin_heavy)
-    starts = jnp.cumsum(nh) - nh
-    total = starts[-1] + nh[-1]
-    overflow = total > wcap
-
-    u = jnp.arange(wcap, dtype=jnp.int32)
-    b = segment_ids_from_starts(starts, wcap)
-    valid = u < total
-    win_idx = jnp.clip(hlo[b] + (u - starts[b]), 0,
-                       max(nwin_heavy - 1, 0))
-    win_block = jnp.where(valid, b, nb).astype(jnp.int32)
-    return (jnp.where(valid, win_idx, 0).astype(jnp.int32),
-            win_block, nh, overflow,
-            jnp.minimum(total, wcap).astype(jnp.int32))
-
-
-def _primary_kernel(pk_ref, tri_ref, rays_ref,
-                    t_out, i_out, *, cfg: RenderConfig, guard: int,
-                    win: int, nw: int):
-    """One (ray block, tri window) item per grid step, accumulating into
-    the ray block's output row.
-
-    tri_ref [1, 128, 16] (tri-sublane, comp-lane); rays_ref [1, 8, 128]
-    (comp-sublane, ray-lane: 0:3 dir, 3 cell key); outs [1, 1, 128]
-    indexed by ray block (min-t / winner pair index).
-    """
-    i = pl.program_id(0)
-    blk_i = pk_ref[i] // nw
-    # First item of a ray block (items are block-major): init the
-    # accumulator row.  SMEM reads of the packed prefetch array.
-    first = jnp.where(i == 0, 1,
-                      (blk_i != pk_ref[jnp.maximum(i - 1, 0)] // nw)
-                      .astype(jnp.int32))
-
-    @pl.when(first == 1)
-    def _init():
-        t_out[0, 0] = jnp.full((128,), jnp.float32(_BIG))
-        i_out[0, 0] = jnp.full((128,), jnp.int32(_MAXI))
-
-    # Static-capacity padding items all target the guard ray block:
-    # skip their arithmetic entirely.  The predicate is a pure SMEM
-    # scalar (no VMEM data dependency), so it does not serialize the
-    # pipeline the way predicating on the accumulator would.  (With the
-    # dynamic grid they rarely exist at all.)
-    @pl.when(blk_i != guard)
-    def _live():
-        _primary_body(None, tri_ref, rays_ref, t_out, i_out, i, cfg,
-                      win)
-
-
-def _primary_body(win_ref, tri_ref, rays_ref, t_out, i_out, i,
-                  cfg: RenderConfig, win: int):
-    def tc(c):  # triangle component as [128, 1]
-        return tri_ref[0][:, c][:, None]
-
-    def rc(c):  # ray component as [1, 128]
-        return rays_ref[0][c, :][None, :]
-
-    dx, dy, dz = rc(0), rc(1), rc(2)
-    ray_cell = rc(3)
-    tvx, tvy, tvz = tc(0), tc(1), tc(2)
-    e1x, e1y, e1z = tc(3), tc(4), tc(5)
-    e2x, e2y, e2z = tc(6), tc(7), tc(8)
-    tri_key = tc(9)
-
-    # pvec = dir x e2 (intersectTriUV, trace_kernel.cu:4-45)
+def _direct_t(d, tri, cfg: RenderConfig, abs_t: bool):
+    """moller_trumbore_t, op for op: t [RAYS, CHUNK], 0 where rejected."""
+    dx, dy, dz = d
+    tvx, tvy, tvz, e1x, e1y, e1z, e2x, e2y, e2z = tri
     pvx = dy * e2z - dz * e2y
     pvy = dz * e2x - dx * e2z
     pvz = dx * e2y - dy * e2x
     det = e1x * pvx + e1y * pvy + e1z * pvz
     inv_det = 1.0 / det
     u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
-    # qvec = tvec x e1
     qvx = tvy * e1z - tvz * e1y
     qvy = tvz * e1x - tvx * e1z
     qvz = tvx * e1y - tvy * e1x
     v = (dx * qvx + dy * qvy + dz * qvz) * inv_det
     t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
-    if cfg.quirks.abs_t:
+    if abs_t:
         t = jnp.abs(t)
-
     reject = ((jnp.abs(det) < jnp.float32(cfg.epsilon))
-              | (u < 0) | (u > 1) | (v < 0) | (u + v > 1) | (t <= 0)
-              | (tri_key != ray_cell))
-    t = jnp.where(reject, jnp.float32(_BIG), t)      # [128 tri, 128 ray]
-    tmin = jnp.min(t, axis=0)
-    # Winner FACE id emitted directly (component 10; the post-hoc
-    # sorted_faces[pair] gather costs 7.5 ms/frame at 1024^2): min face
-    # among exact-t ties in this window, strict-< across ascending
-    # windows — pairs sort (cell, face)-ascending, so this equals the
-    # XLA path's min-pair-index lex-min and the reference's strict-<
-    # scan (trace_kernel.cu:196-204).
-    del win_ref, i
-    fcand = jnp.where(t == tmin[None, :], tc(10), jnp.float32(_BIG))
-    fmin = jnp.min(fcand, axis=0)
-
-    cur_t = t_out[0, 0]
-    upd = tmin < cur_t
-    i_out[0, 0] = jnp.where(upd, fmin.astype(jnp.int32), i_out[0, 0])
-    t_out[0, 0] = jnp.where(upd, tmin, cur_t)
+              | (u < 0) | (u > 1) | (v < 0) | (u + v > 1))
+    return jnp.where(reject, jnp.float32(0.0), t)
 
 
-def _shadow_kernel(pk_ref, tri_ref, rays_ref,
-                   sh_out, *, cfg: RenderConfig, guard: int, win: int,
-                   nw: int, box: bool = False):
-    """Shadow item (mod_light_rckernel analog, light_kernel.cu:120-202),
-    accumulating occlusion OR into the ray block's output row.
-
-    rays_ref comp rows: 0:3 shadow dir, 3 light-to-point distance,
-    4 cell key.  tvec = light - v0.  Output [1, 1, 128] int32 flags.
-    """
-    i = pl.program_id(0)
-    blk_i = pk_ref[i] // nw
-    first = jnp.where(i == 0, 1,
-                      (blk_i != pk_ref[jnp.maximum(i - 1, 0)] // nw)
-                      .astype(jnp.int32))
-
-    @pl.when(first == 1)
-    def _init():
-        sh_out[0, 0] = jnp.zeros((128,), jnp.int32)
-
-    # Skip padding items (guard block) via the SMEM scalar predicate —
-    # no VMEM dependency, pipeline-friendly.  (An occlusion-based early
-    # exit reading the accumulator was tried and REGRESSED ~25%: the
-    # reduce serializes Mosaic's pipeline.)
-    @pl.when(blk_i != guard)
-    def _live():
-        _shadow_body(None, tri_ref, rays_ref, sh_out, i, cfg, box)
-
-
-def _shadow_body(win_ref, tri_ref, rays_ref, sh_out, i,
-                 cfg: RenderConfig, box: bool):
-    """Coefficient-form occlusion test (see pack_tri_windows_coeff).
-
-    Candidate admission: cell-key equality (box=False, the normal pair
-    sweep) or the ray's (gx, gy) inside the triangle's footprint box
-    (box=True, the HEAVY window sweep — pack_heavy_coeff_windows) —
-    together the union equals the reference's every-cell heavy
-    duplication (frustum_grid.h:254).
-    """
-    del win_ref
-
-    def tc(c):
-        return tri_ref[0][:, c][:, None]
-
-    def rc(c):
-        return rays_ref[0][c, :][None, :]
-
-    dx, dy, dz = rc(0), rc(1), rc(2)
-    dist_pt = rc(3)
-    ray_cell = rc(4)
-    gx, gy = rc(5), rc(6)
-    ax, ay, az = tc(0), tc(1), tc(2)
-    bx, by, bz = tc(3), tc(4), tc(5)
-    cx, cy, cz = tc(6), tc(7), tc(8)
-    k = tc(9)
-    tri_key = tc(10)
-
-    det = dx * ax + dy * ay + dz * az
-    inv_det = 1.0 / det
-    u = (dx * bx + dy * by + dz * bz) * inv_det
-    v = (dx * cx + dy * cy + dz * cz) * inv_det
-    t = k * inv_det
-
-    if box:
-        miss_cand = ~((gx >= tc(11)) & (gx <= tc(12))
-                      & (gy >= tc(13)) & (gy <= tc(14)))
-    else:
-        miss_cand = tri_key != ray_cell
-    reject = ((jnp.abs(det) < jnp.float32(cfg.epsilon))
-              | (u < 0) | (u > 1) | (v < 0) | (u + v > 1)
-              | miss_cand)
-    # intersectTri accept: nonzero t below 999999.9
-    # (light_kernel.cu:43-47); negative t passes per quirk.
-    hit = (~reject) & (t != 0) & (t < jnp.float32(999999.9))
-    if not cfg.quirks.shadow_accept_negative_t:
-        hit = hit & (t > 0)
-
-    ox = t * dx
-    oy = t * dy
-    oz = t * dz
-    dist_occ = jnp.sqrt(ox * ox + oy * oy + oz * oz)
-    sh = hit & (dist_occ + jnp.float32(cfg.shadow_epsilon) < dist_pt)
-    sh_out[0, 0] = jnp.maximum(sh_out[0, 0],
-                               jnp.max(sh.astype(jnp.int32), axis=0))
-
-
-def pack_heavy_windows(co, win: int = WIN):
-    """[16, NWH * win] heavy-face coefficient windows (comp-SUBLANE,
-    tri-LANE) for the dedicated heavy kernels.
-
-    Rows 0:3 a, 3:6 b, 6:9 c (see ugrt.trace.heavy: det = d.a,
-    u*det = d.b, v*det = d.c), 9 k (t*det), 10:14 the face's cell
-    footprint (gxmin, gxmax, gymin, gymax) as f32.  Dead slots zero a
-    (det = 0 rejects under the epsilon test) and get the empty footprint
-    (1, 0, 1, 0).  Unlike the per-grid tri windows this is a SMALL
-    (~heavy_capacity) table the kernels keep VMEM-resident across all
-    ray blocks — the XLA heavy sweep (ugrt.trace.heavy) materializes
-    [N, H] intermediates in HBM instead, which measured ~117 ms/frame
-    at 1024^2 x 781 heavy faces on v5e (scripts/profile_chain.py).
-    The comp-row layout makes every per-window component access a cheap
-    row broadcast in the [ray-sublane x tri-lane] kernel orientation.
-    """
-    H = co.k.shape[0]
-    pad = -H % win
-    live = co.live
-
-    def p1(x):
-        x = jnp.where(live, x, 0.0)
-        return jnp.pad(x, (0, pad))[:, None]
-
-    def p3(m):
-        m = jnp.where(live[:, None], m, 0.0)
-        return jnp.pad(m, ((0, pad), (0, 0)))
-
-    r = co.ranges.astype(jnp.float32)
-    dead_r = jnp.broadcast_to(
-        jnp.asarray([1.0, 0.0, 1.0, 0.0], jnp.float32), r.shape)
-    r = jnp.where(live[:, None], r, dead_r)
-    r = jnp.pad(r, ((0, pad), (0, 0)), constant_values=0.0)
-    # padding rows: empty footprint too
-    if pad:
-        idx = jnp.arange(H + pad) >= H
-        r = jnp.where(idx[:, None],
-                      jnp.asarray([1.0, 0.0, 1.0, 0.0], jnp.float32), r)
-
-    face = jnp.pad(
-        jnp.where(live, co.face, -1).astype(jnp.float32), (0, pad),
-        constant_values=-1.0)[:, None]  # row 14: face id (winner emit)
-    out = jnp.concatenate(
-        [p3(co.a), p3(co.b), p3(co.c), p1(co.k), r, face,
-         jnp.zeros((H + pad, NCOMP - 15), jnp.float32)], axis=1)
-    return out.T
-
-
-def spatial_reorder_heavy(co):
-    """Permute heavy coefficients by footprint center (gx-major) so each
-    packed 128-face window's footprint UNION stays tight — the basis of
-    the shadow heavy sweep's per-block window mask.  Dead entries sort
-    last (live count and the per-ray footprint test are unchanged).
-
-    SHADOW ONLY: occlusion combines by OR, which is order-independent.
-    The primary heavy path must keep ascending face order — its
-    cross-window strict-< / in-window min-face combine encodes the
-    reference's (t, face) lex-min tie-break.
-    """
-    cx = (co.ranges[:, 0] + co.ranges[:, 1]) // 2
-    cy = (co.ranges[:, 2] + co.ranges[:, 3]) // 2
-    key = jnp.where(co.live, cx * 1024 + cy, jnp.int32(2**30))
-    perm = jnp.argsort(key)
-
-    def p(x):
-        return x[perm]
-
-    return co._replace(a=p(co.a), b=p(co.b), c=p(co.c), k=p(co.k),
-                       face=p(co.face), live=p(co.live),
-                       ranges=p(co.ranges))
-
-
-def heavy_window_rects(co, win: int = WIN):
-    """Per-window footprint union rects (x0, x1, y0, y1), each [NW].
-
-    Dead/padding faces contribute the empty rect.  Meaningful after
-    spatial_reorder_heavy — with arbitrary face order every window's
-    union approaches the full grid and the mask prunes nothing
-    (measured: windowed-mode light grids average 13%-of-grid footprints
-    per face, so spatially clustered windows stay small)."""
-    H = co.k.shape[0]
-    pad = -H % win
-    big = jnp.int32(10**6)
-    x0 = jnp.where(co.live, co.ranges[:, 0], big)
-    x1 = jnp.where(co.live, co.ranges[:, 1], -1)
-    y0 = jnp.where(co.live, co.ranges[:, 2], big)
-    y1 = jnp.where(co.live, co.ranges[:, 3], -1)
-
-    def pk(x, c, red):
-        x = jnp.pad(x, (0, pad), constant_values=c)
-        return red(x.reshape((H + pad) // win, win), axis=1)
-
-    return (pk(x0, big, jnp.min), pk(x1, -1, jnp.max),
-            pk(y0, big, jnp.min), pk(y1, -1, jnp.max))
-
-
-def heavy_block_window_range(first_cell, last_cell, grid_y: int, rects):
-    """Per-block contiguous window range (w_lo [NB], w_hi [NB]): the
-    windows whose footprint union the block's cell-key interval
-    [first_cell, last_cell] can touch.  Empty range: w_lo > w_hi.
-
-    A sorted 128-ray block covers a CONTIGUOUS cell-key range; as a
-    (gx, gy) rect that is [first//GY, last//GY] x ([first%GY, last%GY]
-    when one row, else all gy).  Conservative: a window outside the
-    range would reject every candidate through the in-kernel footprint
-    test, so skipping it is exact.  Windows packed by
-    spatial_reorder_heavy make the overlap set nearly contiguous;
-    covering its min..max adds only slack windows (whose candidates the
-    footprint test still rejects).  last_cell < 0 marks an all-sentinel
-    block (empty range).
-    """
-    wx0, wx1, wy0, wy1 = rects
-    nw = wx0.shape[0]
-    bx_lo = first_cell // grid_y
-    bx_hi = jnp.maximum(last_cell, 0) // grid_y
-    one_row = bx_lo == bx_hi
-    by_lo = jnp.where(one_row, first_cell % grid_y, 0)
-    by_hi = jnp.where(one_row, jnp.maximum(last_cell, 0) % grid_y,
-                      grid_y - 1)
-    ov = ((bx_lo[:, None] <= wx1[None, :])
-          & (bx_hi[:, None] >= wx0[None, :])
-          & (by_lo[:, None] <= wy1[None, :])
-          & (by_hi[:, None] >= wy0[None, :])
-          & (last_cell >= 0)[:, None])
-    widx = jnp.arange(nw, dtype=jnp.int32)[None, :]
-    w_lo = jnp.min(jnp.where(ov, widx, nw), axis=1).astype(jnp.int32)
-    w_hi = jnp.max(jnp.where(ov, widx, -1), axis=1).astype(jnp.int32)
-    return w_lo, w_hi
-
-
-def _heavy_common(tri_ref, rays, w, cfg):
-    """One [128 rays x win tris] heavy window: det/u'/v'/t + footprint.
-
-    Orientation: rays on SUBLANES ([128, 1] columns, extracted once per
-    ray block by the kernels), triangle components on LANES (tri_ref
-    rows -> [1, win] broadcasts — cheap, no per-window lane extracts).
-    Operation order replicates ugrt.trace.heavy._det_uv / chunk bodies
-    EXACTLY (dx*m0 + dy*m1 + dz*m2 left-assoc; ud/det2 multiplied-out
-    accept forms) so results are bitwise equal to the XLA heavy path.
-    """
-    win = WIN
-    dx, dy, dz, gx, gy = rays
-
-    def tc(c):
-        return tri_ref[c, pl.ds(w * win, win)][None, :]
-
-    det = dx * tc(0) + dy * tc(1) + dz * tc(2)
-    up = dx * tc(3) + dy * tc(4) + dz * tc(5)
-    vp = dx * tc(6) + dy * tc(7) + dz * tc(8)
-    k = tc(9)
+def _coeff_t(d, co, cfg: RenderConfig):
+    """ugrt.trace.heavy's coefficient form, op for op: (t, reject)."""
+    dx, dy, dz = d
+    a0, a1, a2, b0, b1, b2, c0, c1, c2, k = co
+    det = dx * a0 + dy * a1 + dz * a2
+    up = dx * b0 + dy * b1 + dz * b2
+    vp = dx * c0 + dy * c1 + dz * c2
     det2 = det * det
     ud = up * det
     vd = vp * det
     inv = 1.0 / det
     t = k * inv
-    in_fp = ((gx >= tc(10)) & (gx <= tc(11))
-             & (gy >= tc(12)) & (gy <= tc(13)))
     reject = ((jnp.abs(det) < jnp.float32(cfg.epsilon))
-              | (ud < 0) | (ud > det2) | (vd < 0) | (ud + vd > det2)
-              | ~in_fp)
+              | (ud < 0) | (ud > det2) | (vd < 0) | (ud + vd > det2))
     return t, reject
 
 
-MB = 8  # ray blocks per heavy grid step (amortizes ~4.5 us/step overhead)
+def _in_box(gx, gy, box):
+    x0, x1, y0, y1 = box
+    return (gx >= x0) & (gx <= x1) & (gy >= y0) & (gy <= y1)
 
 
-def _heavy_primary_kernel(nlive_ref, tri_ref, rays_ref, t_out, i_out, *,
-                          cfg: RenderConfig, nwh: int):
-    """Dense heavy sweep: every ray block tests every heavy window.
+def _lexmin(carry, t, face):
+    """Fold a [RAYS, CHUNK] candidate block into the (t, face) lex-min."""
+    tbest, fbest = carry
+    tmin = jnp.min(t, axis=1)
+    fmin = jnp.min(jnp.where(t == tmin[:, None], face, _MAXI), axis=1)
+    take = (tmin < tbest) | ((tmin == tbest) & (fmin < fbest))
+    return jnp.where(take, tmin, tbest), jnp.where(take, fmin, fbest)
 
-    Accept rule replicates heavy_min_t (|t| quirk, t > 0); output is
-    (min t, winner FACE id from table row 14) per ray — min face among
-    exact-t ties per window, strict-< across windows; heavy faces are
-    packed ascending, so this equals heavy_min_t's lex-min.
-    Each grid step covers MB ray blocks.
 
-    Loop structure (round 5): ONE lax loop over the LIVE window count
-    (SMEM scalar) per grid step, with the mb loop statically unrolled
-    INSIDE the body and accumulation going through the OUTPUT refs (no
-    loop carries).  Round 4 ran one fori per mb, each carrying TWO
-    [128, 1] accumulators — MB x steps = 8.2k loop instances of Mosaic
-    while setup plus double-carry traffic; this form measured 53.1 ->
-    22.4 ms at flagship scale in isolation (scripts/micro_heavy.py,
-    bitwise-identical) and 25.6 -> 22.9 ms/step in the full-step trace.
-    The round-4 variant with all-MB loop CARRIES lost ~17 ms to carry
-    traffic — routing the accumulators through the output refs instead
-    is what makes the single-loop form win.  The static capacity's dead
-    windows are skipped entirely (live count bounds the loop).
+def _ray_rows(ref, rows, r0):
+    return [ref[r, pl.ds(r0, RAYS)][:, None] for r in rows]
+
+
+def _primary_kernel(rng_ref, pair_ref, ptag_ref, heavy_ref, htag_ref,
+                    ray_ref, rgrid_ref, t_ref, f_ref, *,
+                    cfg: RenderConfig, rep: int):
+    g = pl.program_id(0)
+    r0 = (g // rep) * RAYS
+    d = _ray_rows(ray_ref, range(3), r0)
+    gx, gy = _ray_rows(rgrid_ref, range(2), r0)
+
+    def cell_body(start, live, c):
+        tri = _chunk(pair_ref, range(9), start, live, 0.0)
+        (face,) = _chunk(ptag_ref, [0], start, live, -1)
+        t = _direct_t(d, tri, cfg, cfg.quirks.abs_t)
+        t = jnp.where(live[None, :] & (t > 0), t, jnp.float32(_BIG))
+        return _lexmin(c, t, face)
+
+    def heavy_body(start, live, c):
+        co = _chunk(heavy_ref, range(10), start, live, 0.0)
+        face, *box = _chunk(htag_ref, range(5), start, live, -1)
+        t, reject = _coeff_t(d, co, cfg)
+        if cfg.quirks.abs_t:
+            t = jnp.abs(t)
+        reject = (reject | (t <= 0) | ~live[None, :]
+                  | ~_in_box(gx, gy, box))
+        return _lexmin(c, jnp.where(reject, jnp.float32(_BIG), t), face)
+
+    best = (jnp.full((RAYS,), _BIG, jnp.float32),
+            jnp.full((RAYS,), _MAXI, jnp.int32))
+    best = _loop(rng_ref[0, g], rng_ref[1, g], cell_body, best)
+    tbest, fbest = _loop(rng_ref[2, g], rng_ref[3, g], heavy_body, best)
+    t_ref[pl.ds(g * RAYS, RAYS)] = tbest
+    f_ref[pl.ds(g * RAYS, RAYS)] = jnp.where(tbest >= _BIG, _MAXI, fbest)
+
+
+def _shadow_kernel(rng_ref, pair_ref, ptag_ref, heavy_ref, htag_ref,
+                   ray_ref, rint_ref, org_ref, sh_ref, *,
+                   cfg: RenderConfig):
+    g = pl.program_id(0)
+    r0 = g * RAYS
+    d = _ray_rows(ray_ref, range(3), r0)
+    (dist_pt,) = _ray_rows(ray_ref, [3], r0)
+    key, gx, gy = _ray_rows(rint_ref, range(3), r0)
+    lx, ly, lz = org_ref[0], org_ref[1], org_ref[2]
+    eps = jnp.float32(cfg.shadow_epsilon)
+
+    def accept(t):
+        # intersectTri accept: nonzero t below 999999.9
+        # (light_kernel.cu:43-47); negative t passes per quirk.
+        hit = (t != 0) & (t < jnp.float32(999999.9))
+        if not cfg.quirks.shadow_accept_negative_t:
+            hit = hit & (t > 0)
+        return hit
+
+    def fold(acc, sh):
+        return jnp.maximum(acc, jnp.max(sh.astype(jnp.int32), axis=1))
+
+    def cell_body(start, live, acc):
+        tri = _chunk(pair_ref, range(9), start, live, 0.0)
+        (pkey,) = _chunk(ptag_ref, [1], start, live, -1)
+        t = _direct_t(d, tri, cfg, abs_t=False)
+        dlx = (lx + t * d[0]) - lx
+        dly = (ly + t * d[1]) - ly
+        dlz = (lz + t * d[2]) - lz
+        dist_occ = jnp.sqrt(dlx * dlx + dly * dly + dlz * dlz)
+        sh = (accept(t) & (dist_occ + eps < dist_pt)
+              & live[None, :] & (pkey == key))
+        return fold(acc, sh)
+
+    def heavy_body(start, live, acc):
+        co = _chunk(heavy_ref, range(10), start, live, 0.0)
+        _, *box = _chunk(htag_ref, range(5), start, live, -1)
+        t, reject = _coeff_t(d, co, cfg)
+        ox, oy, oz = t * d[0], t * d[1], t * d[2]
+        dist_occ = jnp.sqrt(ox * ox + oy * oy + oz * oz)
+        sh = (~reject & accept(t) & (dist_occ + eps < dist_pt)
+              & live[None, :] & (key >= 0) & _in_box(gx, gy, box))
+        return fold(acc, sh)
+
+    acc = jnp.zeros((RAYS,), jnp.int32)
+    acc = _loop(rng_ref[0, g], rng_ref[1, g], cell_body, acc)
+    acc = _loop(rng_ref[2, g], rng_ref[3, g], heavy_body, acc)
+    sh_ref[pl.ds(r0, RAYS)] = acc
+
+
+def _call(kernel, n_programs, out_shape, interpret, name, *args):
+    return pl.pallas_call(
+        kernel, out_shape=out_shape, grid=(n_programs,),
+        compiler_params=_PARAMS, interpret=interpret, name=name)(*args)
+
+
+@functools.partial(jax.jit, static_argnames=("cfg", "rep", "interpret"))
+def primary_sweep(ranges, pairs, heavy, rays, ray_grid, *,
+                  cfg: RenderConfig, rep: int = 1,
+                  interpret: bool = False):
+    """Per-ray (min t, winner face) for every program's two ranges.
+
+    ranges: int32 [4, G] rows lo, hi, hlo, hhi; program g sweeps pair
+    columns [lo, hi) and heavy columns [hlo, hhi).  pairs / heavy: the
+    (data, tags) tables of pack_pairs / pack_heavy.  rays: f32 [3,
+    N] directions, program g reading rays [(g // rep) * RAYS, ... +
+    RAYS) (rep = slabs per tile); ray_grid: int32 [2, N] the ray's own
+    grid cell (gx, gy) for the footprint test.  Returns t f32 [G * RAYS]
+    (3e38 where no hit) and face int32 [G * RAYS] (2^31 - 1 where none).
     """
-    del nwh  # static bound only pads the table; live windows come in SMEM
-    t_out[:] = jnp.full(t_out.shape, jnp.float32(_BIG))
-    i_out[:] = jnp.full(i_out.shape, jnp.int32(_MAXI))
-
-    def w_body(w, carry):
-        for mb in range(MB):
-            # Ray components as [128, 1] columns (lane extracts).
-            rays = tuple(rays_ref[mb, :, c][:, None]
-                         for c in (0, 1, 2, 4, 5))
-            t, reject = _heavy_common(tri_ref, rays, w, cfg)
-            if cfg.quirks.abs_t:
-                t = jnp.abs(t)
-            t = jnp.where(reject | (t <= 0), jnp.float32(_BIG), t)
-            tmin = jnp.min(t, axis=1)[:, None]
-            face_row = tri_ref[14, pl.ds(w * WIN, WIN)][None, :]
-            fcand = jnp.where(t == tmin, face_row, jnp.float32(_BIG))
-            fmin = jnp.min(fcand, axis=1)[:, None]
-            upd = tmin < t_out[mb]
-            i_out[mb] = jnp.where(upd, fmin.astype(jnp.int32), i_out[mb])
-            t_out[mb] = jnp.where(upd, tmin, t_out[mb])
-        return carry
-
-    jax.lax.fori_loop(0, nlive_ref[0], w_body, 0)
-
-
-def _heavy_primary_kernel_unrolled(nlive_ref, tri_ref, rays_ref,
-                                   t_out, i_out, *, cfg: RenderConfig,
-                                   nwh: int):
-    """Fully UNROLLED dense heavy sweep: every window of the static
-    table, no loops at all, accumulators in local SSA values with a
-    per-window ``w < nlive`` select.
-
-    Measured 15.9 ms vs the looped form's 22.4 ms at flagship scale
-    (8.2k blocks x 7 live of 8 windows, scripts/micro_heavy.py v3,
-    bitwise equal): no fori instances and no per-window output-ref
-    read-modify-write.  The flip side is that MASKED dead windows still
-    do full arithmetic, so heavy_primary_sweep dispatches here only
-    when most of the static table is live (lax.cond on the live count);
-    sweeping a mostly-dead table this way measured ~30 ms/step with 16
-    live faces in a 1024-capacity table.
-    """
-    nlive = nlive_ref[0]
-    for mb in range(MB):
-        rays = tuple(rays_ref[mb, :, c][:, None]
-                     for c in (0, 1, 2, 4, 5))
-        t_acc = jnp.full((128, 1), jnp.float32(_BIG))
-        i_acc = jnp.full((128, 1), jnp.int32(_MAXI))
-        for w in range(nwh):
-            t, reject = _heavy_common(tri_ref, rays, w, cfg)
-            if cfg.quirks.abs_t:
-                t = jnp.abs(t)
-            t = jnp.where(reject | (t <= 0), jnp.float32(_BIG), t)
-            tmin = jnp.min(t, axis=1)[:, None]
-            face_row = tri_ref[14, pl.ds(w * WIN, WIN)][None, :]
-            fcand = jnp.where(t == tmin, face_row, jnp.float32(_BIG))
-            fmin = jnp.min(fcand, axis=1)[:, None]
-            upd = (tmin < t_acc) & (w < nlive)
-            i_acc = jnp.where(upd, fmin.astype(jnp.int32), i_acc)
-            t_acc = jnp.where(upd, tmin, t_acc)
-        t_out[mb] = t_acc
-        i_out[mb] = i_acc
-
-
-def _heavy_call(kernel_fn, heavy_count, tri_windows, rays_rm,
-                out_shapes, interpret: bool):
-    """Dense (ray block x live heavy windows) sweep: grid over groups of
-    MB ray blocks; the packed heavy table is a full-array block Mosaic
-    keeps in VMEM across the whole grid (one DMA total, vs one window
-    DMA per work item in the scheduled sweeps).  The inner window loop
-    runs only over ceil(heavy_count / WIN) live windows (SMEM scalar) —
-    the static table is sized by heavy_capacity, and sweeping its dead
-    windows measured ~30 ms/step at 1024^2 with 16 live faces in a
-    1024-capacity table.
-
-    rays_rm is RAY-MAJOR [NB, 128 rays, 8 comps] — the natural layout
-    of the per-ray row data (round 5: taking the comp-major sweep
-    layout here cost a [NB, 8, 128] -> [NB, 128, 8] transpose per call,
-    ~1.6 ms each at 1024^2).  Inside the kernel, components are
-    [128, 1] lane-extracts once per block."""
-    nb = rays_rm.shape[0]
-    nb_pad = -(-nb // MB) * MB
-    if nb_pad != nb:
-        rays_rm = jnp.pad(rays_rm, ((0, nb_pad - nb), (0, 0), (0, 0)))
-    rays_t = rays_rm
-    nwh = tri_windows.shape[1] // WIN
-    kernel = functools.partial(kernel_fn, nwh=nwh)
-    n_live = jnp.clip(
-        (heavy_count.astype(jnp.int32) + (WIN - 1)) // WIN, 0, nwh
-    ).reshape(1)
-    # Output blocks are (MB, 128, 1) on [nb_pad, 128, 1] arrays: the
-    # last dim equals the array dim (Mosaic's divisibility rule).
-    grid_spec = pl.GridSpec(
-        grid=(nb_pad // MB,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(tri_windows.shape, lambda i: (0, 0)),
-            pl.BlockSpec((MB, 128, 8), lambda i: (i, 0, 0)),
-        ],
-        out_specs=[
-            pl.BlockSpec((MB, 128, 1), lambda i: (i, 0, 0))
-            for _ in out_shapes
-        ],
-    )
-    outs = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[jax.ShapeDtypeStruct((nb_pad, 128, 1), dt)
-                   for dt in out_shapes],
-        interpret=interpret,
-    )(n_live, tri_windows, rays_t)
-    return [o.reshape(nb_pad, 128)[:nb] for o in outs]
+    g = ranges.shape[1]
+    assert rays.shape[1] * rep == g * RAYS, (rays.shape, g, rep)
+    kernel = functools.partial(_primary_kernel, cfg=cfg, rep=rep)
+    out = (jax.ShapeDtypeStruct((g * RAYS,), jnp.float32),
+           jax.ShapeDtypeStruct((g * RAYS,), jnp.int32))
+    return _call(kernel, g, out, interpret, "primary_sweep", ranges,
+                 *pairs, *heavy, rays, ray_grid)
 
 
 @functools.partial(jax.jit, static_argnames=("cfg", "interpret"))
-def heavy_primary_sweep(heavy_count, tri_windows, rays_rm, *,
-                        cfg: RenderConfig, interpret: bool = False):
-    """Per-ray (min t [NB, 128], winner heavy ROW [NB, 128]) over the
-    packed heavy table; _BIG / int32-max where none.  rays_rm is
-    RAY-MAJOR [NB, 128, 8] (see _heavy_call).
+def shadow_sweep(ranges, pairs, heavy, rays, ray_int, origin, *,
+                 cfg: RenderConfig, interpret: bool = False):
+    """Per-ray occlusion flags int32 [N] for consecutive blocks of RAYS
+    rays (the last block may be partial).
 
-    Two bitwise-identical kernels, picked at runtime by live density:
-    the fully unrolled form wins when most of the static table is live
-    (the flagship: 7 of 8 windows), the looped form when it is mostly
-    dead (crossover at nlive/nwh ~ 5/8 from the measured 2.0 vs 3.2
-    ms per window-unit costs)."""
-    nwh = tri_windows.shape[1] // WIN
-    n_live = jnp.clip(
-        (heavy_count.astype(jnp.int32) + (WIN - 1)) // WIN, 0, nwh)
-
-    def call(kernel_fn, operands):
-        return tuple(_heavy_call(
-            functools.partial(kernel_fn, cfg=cfg),
-            operands[0], operands[1], operands[2],
-            (jnp.float32, jnp.int32), interpret))
-
-    return jax.lax.cond(
-        n_live * 8 >= nwh * 5,
-        functools.partial(call, _heavy_primary_kernel_unrolled),
-        functools.partial(call, _heavy_primary_kernel),
-        (heavy_count, tri_windows, rays_rm))
-
-
-def _sweep_call(kernel_fn, tri_windows, rays_blocks, win_idx, win_block,
-                out_shapes, interpret: bool, guard: int | None = None,
-                total=None):
-    wcap = win_idx.shape[0]
-    nb1 = rays_blocks.shape[0]  # >= NB + 1 (guard; callers may append
-    # extra MB-alignment padding blocks after it — never referenced by
-    # win_block, their output rows are discarded garbage)
-    win = tri_windows.shape[1]
-    nw = tri_windows.shape[0]
-    if guard is None:
-        guard = nb1 - 1
-    kernel = functools.partial(kernel_fn, guard=guard, win=win, nw=nw)
-    # The (window, block) schedule is PACKED into one int32 per item
-    # (block * NW + window): scalar-prefetch operands live in the 1 MB
-    # SMEM, and two full-capacity arrays per sweep crowded out XLA's
-    # fast-memory staging of unrelated gather tables (the shade meta
-    # gather regressed 1.9 -> 15.3 ms when the heavy sweep's second
-    # schedule array landed) — packing halves the footprint.
-    packed = (win_block * jnp.int32(nw) + win_idx).astype(jnp.int32)
-    # Outputs are [NB+1, 1, 128] with block (1, 1, 128) indexed by the
-    # item's RAY BLOCK id: consecutive items of one block revisit the
-    # same output block, so the combine runs in VMEM and Mosaic writes
-    # each row back once.  (3-D because Mosaic requires the block's last
-    # two dims to divide (8, 128) or equal the array dims.)
-    # DYNAMIC grid size (traced total from the scheduler): only live
-    # items execute; the capacity tail exists solely as array padding.
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(wcap if total is None else total,),
-        in_specs=[
-            pl.BlockSpec((1, win, NCOMP),
-                         lambda i, pk: (pk[i] % nw, 0, 0)),
-            pl.BlockSpec((1, 8, 128),
-                         lambda i, pk: (pk[i] // nw, 0, 0)),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, 1, 128),
-                         lambda i, pk: (pk[i] // nw, 0, 0))
-            for _ in out_shapes
-        ],
-    )
-    outs = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[jax.ShapeDtypeStruct((nb1, 1, 128), dt)
-                   for dt in out_shapes],
-        interpret=interpret,
-    )(packed, tri_windows, rays_blocks)
-    return [o.reshape(nb1, 128) for o in outs]
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("cfg", "interpret", "guard"))
-def primary_sweep(tri_windows, rays_blocks, win_idx, win_block,
-                  total=None, *,
-                  cfg: RenderConfig, interpret: bool = False,
-                  guard: int | None = None):
-    """Per-ray-block (min t [NB+1, 128], winner FACE id [NB+1, 128]).
-
-    Winner = face id ((t, face) lex-min over the block's candidate
-    windows); 2^31-1 where no hit.  Blocks with no candidate windows
-    report t = _BIG.  Row NB is the guard block (discard).
+    ranges, pairs, heavy: as primary_sweep, with pair tags row 1 (the
+    cell key) tested against the ray's key; G = ceil(N / RAYS).  rays:
+    f32 [4, N] (direction from the light, light-to-point distance);
+    ray_int: int32 [3, N] (cell key, -1 for rays outside the light grid;
+    gx; gy).  origin: f32 [3] light position.
     """
-    return tuple(_sweep_call(
-        functools.partial(_primary_kernel, cfg=cfg),
-        tri_windows, rays_blocks, win_idx, win_block,
-        (jnp.float32, jnp.int32), interpret, guard, total))
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("cfg", "interpret", "guard", "box"))
-def shadow_sweep(tri_windows, rays_blocks, win_idx, win_block,
-                 total=None, *,
-                 cfg: RenderConfig, interpret: bool = False,
-                 guard: int | None = None, box: bool = False):
-    """Per-ray-block shadow flags [NB+1, 128] int32 (row NB = guard)."""
-    (sh,) = _sweep_call(
-        functools.partial(_shadow_kernel, cfg=cfg, box=box),
-        tri_windows, rays_blocks, win_idx, win_block,
-        (jnp.int32,), interpret, guard, total)
-    return sh
+    g = ranges.shape[1]
+    n = rays.shape[1]
+    assert -(-n // RAYS) == g, (n, g)
+    pad = g * RAYS - n
+    rays = jnp.pad(rays, ((0, 0), (0, pad)))
+    ray_int = jnp.pad(ray_int, ((0, 0), (0, pad)), constant_values=-1)
+    kernel = functools.partial(_shadow_kernel, cfg=cfg)
+    out = jax.ShapeDtypeStruct((g * RAYS,), jnp.int32)
+    return _call(kernel, g, out, interpret, "shadow_sweep", ranges,
+                 *pairs, *heavy, rays, ray_int, origin)[:n]

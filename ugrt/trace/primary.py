@@ -2,19 +2,19 @@
 
 The reference's rckernel_alpha (/root/reference/trace_kernel.cu:84-270)
 maps one CUDA block to one grid cell ≡ 8x8 pixel tile and streams the
-cell's triangle list through shared memory in 64-triangle batches.  CUDA's
-block scheduler load-balances the ragged cells; a TPU core runs grid steps
-itself, so the TPU-native formulation flattens the ragged CSR into dense
-*work items* first:
+cell's triangle list through shared memory in 64-triangle batches.  The
+plain XLA formulation flattens the ragged CSR into dense *work items*
+first:
 
     work item w = (cell c, triangle batch b)   — static capacity
-    t[w, ray, tri] = Möller–Trumbore            — dense [64 x B] VPU block
+    t[w, ray, tri] = Möller–Trumbore            — dense [64 x B] block
     per-cell result = segment-min over w        — XLA segment_min
 
-Total compute is Σ_cells ceil(count/B)·64·B — the same arithmetic the GPU
-does, with no divergence and no atomics.  Work items are processed in
-fixed-size chunks via lax.map to bound live memory; the Pallas kernel in
-ugrt.trace.pallas_tracer implements the same contract fused.
+Total compute is Σ_cells ceil(count/B)·64·B — the same arithmetic the
+reference does, with no divergence and no atomics.  Work items are
+processed in fixed-size chunks via lax.map to bound live memory; the
+Pallas kernel in ugrt.trace.pallas_tracer implements the same contract
+fused, one program per cell.
 
 Semantics replicated exactly (quirks per RenderConfig.quirks):
   * |t| acceptance (trace_kernel.cu:35) with strict-< update, i.e. min
@@ -55,11 +55,6 @@ class WorkItems(NamedTuple):
     cell: jax.Array     # [Wcap] int32; num_cells for padding
     offset: jax.Array   # [Wcap] int32 into sorted pair arrays
     count: jax.Array    # [Wcap] int32 triangles in this batch (<= B)
-
-
-def work_capacity(cfg: RenderConfig, pair_capacity: int) -> int:
-    """Safe static bound: Σ ceil(count/B) <= num_cells + capacity/B."""
-    return cfg.num_cells + pair_capacity // cfg.tri_batch
 
 
 def make_work_items(counts, offsets, batch: int, wcap: int) -> WorkItems:
@@ -201,7 +196,7 @@ def _work_chunk_min(vertices, faces, grid, work, ray_blocks, eye,
 def trace_primary(vertices, faces, camcoords, grid: DeviceGrid,
                   cfg: RenderConfig, *, chunk_size: int = 256,
                   bx0=0, n_bx: int | None = None,
-                  backend: str = "xla", interpret: bool = False):
+                  backend: str | None = None, interpret: bool = False):
     """Full primary trace.  Returns per-pixel dict:
     t [H,w], face_id [H,w] int32, normal [H,w,3], ray_dir [H,w,3].
 
@@ -210,10 +205,14 @@ def trace_primary(vertices, faces, camcoords, grid: DeviceGrid,
     outputs cover columns [bx0*tile_x, ...).  bx0 may be a traced scalar
     (e.g. axis_index * n_bx); n_bx must be static.  Default: full image.
 
-    backend: "xla" (gather/segment pipeline) or "pallas" (fused Mosaic
-    kernel, ugrt.trace.pallas_tracer); interpret runs the Pallas kernel
-    in interpreter mode (CPU testing).
+    backend: "xla" (gather/segment pipeline) or "pallas" (the fused
+    range sweep of ugrt.trace.pallas_tracer, compiled through Triton);
+    None picks the platform's default (ugrt.trace.default_trace_backend).
+    interpret runs the kernel in the Pallas interpreter (CPU tests).
     """
+    if backend is None:
+        from ugrt.trace import default_trace_backend
+        backend = default_trace_backend()
     H, W = cfg.screen_height, cfg.screen_width
     assert W // cfg.tile_x == cfg.grid_x and H // cfg.tile_y == cfg.grid_y, (
         "screen tiles must match grid dims (reference couples them, "
@@ -234,92 +233,48 @@ def trace_primary(vertices, faces, camcoords, grid: DeviceGrid,
     rays_t = tile_rays(dirs, cfg)                        # [T, R, 3]
     R = rays_t.shape[1]
 
+    # Each ray's own grid cell: tile t covers cell (bx0 + t // tiles_y,
+    # t % tiles_y) — the heavy footprint test needs it.
+    tile_ids = jnp.arange(num_tiles, dtype=jnp.int32)
+    gx_t = jnp.asarray(bx0, jnp.int32) + tile_ids // tiles_y
+    gy_t = tile_ids % tiles_y
+    gx_r = jnp.broadcast_to(gx_t[:, None], (num_tiles, R)).reshape(-1)
+    gy_r = jnp.broadcast_to(gy_t[:, None], (num_tiles, R)).reshape(-1)
+    counts = jax.lax.dynamic_slice(grid.cell_count, (c0,), (cells_local,))
+    offsets = jax.lax.dynamic_slice(grid.cell_offset, (c0,), (cells_local,))
+    heavy = grid.heavy_faces.shape[0] > 0
+    co = None
+    if heavy:
+        from ugrt.trace import heavy as theavy
+
+        co = theavy.heavy_coeffs(vertices, faces, grid.heavy_faces,
+                                 grid.heavy_count, eye, grid.heavy_ranges)
+
     if backend == "pallas":
-        # v3 window scheduler (ugrt.trace.pallas_tracer): work item =
-        # (ray block of 2 tiles, 128-triangle window of the sorted pair
-        # array), in-kernel cell-key masking.  Exact work bound: per
-        # slab the blocks' pair spans are disjoint, so the window count
-        # is at most NBp + capacity/128 — no overflow possible.
+        # One program per cell (tile, slab): its pair range is exactly
+        # the cell's list; heavy faces live in slab 0 (the build asserts
+        # num_slabs == 1 when the split is on) and are merged in-kernel.
         from ugrt.trace import pallas_tracer as pt
 
-        assert num_tiles % 2 == 0 and 2 * R == 128, (
-            "pallas backend packs two 64-ray tiles per 128-ray block")
-        NBp = num_tiles // 2
-        tri_w = pt.pack_tri_windows(vertices, faces, grid, eye)
-        NW = tri_w.shape[0]
-        wcap_p = NBp + NW
-
-        # RAY-MAJOR row assembly [NBp, 128, 8] (comps: dir xyz, cell
-        # key, gx, gy, pad2) — the natural layout of rays_t, consumed
-        # directly by the heavy kernels; ONE swapaxes derives the
-        # comp-major [NBp+1, 8, 128] layout the windowed sweep wants.
-        dirs_rm = rays_t.reshape(NBp, 2 * R, 3)
-        tiles_local = jnp.arange(num_tiles, dtype=jnp.int32)
-        gcell_base = (c0 + tiles_local * NS).reshape(NBp, 2)
-        blocks2 = jnp.arange(NBp, dtype=jnp.int32)
-        # Comps 4/5: the ray's own grid-cell coordinates (heavy-kernel
-        # footprint mask); every ray of a tile shares its tile's cell.
-        gx_t = (jnp.asarray(bx0, jnp.int32)
-                + tiles_local // tiles_y).astype(jnp.float32)
-        gy_t = (tiles_local % tiles_y).astype(jnp.float32)
-        gxcol = jnp.broadcast_to(
-            gx_t.reshape(NBp, 2)[:, :, None], (NBp, 2, R)
-        ).reshape(NBp, 2 * R, 1)
-        gycol = jnp.broadcast_to(
-            gy_t.reshape(NBp, 2)[:, :, None], (NBp, 2, R)
-        ).reshape(NBp, 2 * R, 1)
-        zeros2 = jnp.zeros((NBp, 2 * R, 2), jnp.float32)
-        # Guard block at index NBp, then zero blocks up to the heavy
-        # kernels' MB grouping so _heavy_call never pads (a separate
-        # [NB, 128, 8] pad op costs ~1.6 ms at 1024^2).  Neither the
-        # guard nor the zero blocks can hit: zero dirs give det = 0.
-        align_pad = -(NBp + 1) % pt.MB
-        guard_rm = jnp.concatenate(
-            [jnp.zeros((1 + align_pad, 2 * R, 3), jnp.float32),
-             jnp.full((1 + align_pad, 2 * R, 3), -1.0, jnp.float32),
-             jnp.zeros((1 + align_pad, 2 * R, 2), jnp.float32)], axis=2)
-
-        t_slabs = []
-        f_slabs = []
-        rows_rm = None
-        for s in range(NS):
-            keycol = jnp.broadcast_to(
-                (gcell_base + s)[:, :, None].astype(jnp.float32),
-                (NBp, 2, R)).reshape(NBp, 2 * R, 1)
-            rows_rm = jnp.concatenate(
-                [dirs_rm, keycol, gxcol, gycol, zeros2], axis=2)
-            rows_rm = jnp.concatenate([rows_rm, guard_rm], axis=0)
-            rays_b = jnp.swapaxes(rows_rm, 1, 2)
-            k1 = c0 + (2 * blocks2) * NS + s
-            k2 = c0 + (2 * blocks2 + 1) * NS + s
-            lo = grid.cell_offset[k1]
-            hi = grid.cell_offset[k2] + grid.cell_count[k2]
-            win_idx, win_blk, _, total = pt.make_windows(lo, hi,
-                                                         wcap_p, NW)
-            # The kernel combines across windows in-place (v4): outputs
-            # are already per-ray-block min-t / winner pair index.
-            # Dynamic grid (total): only live items run.
-            t_blk, p_blk = pt.primary_sweep(
-                tri_w, rays_b, win_idx, win_blk, total, cfg=cfg,
-                interpret=interpret, guard=NBp)
-            t_slabs.append(t_blk[:NBp].reshape(num_tiles, R))
-            f_slabs.append(p_blk[:NBp].reshape(num_tiles, R))
-        t_cell = jnp.stack(t_slabs, axis=1)      # [num_tiles, NS, R]
-        win_cell = jnp.stack(f_slabs, axis=1)    # already FACE ids
-        value_lookup = None
+        assert R == pt.RAYS, "the kernel takes one 8x8 tile per program"
+        slab0 = jnp.arange(cells_local, dtype=jnp.int32) % NS == 0
+        hhi = jnp.where(slab0, grid.heavy_count, 0) if heavy else 0
+        zero = jnp.zeros((cells_local,), jnp.int32)
+        ranges = jnp.stack([offsets, offsets + counts, zero,
+                            zero + hhi]).astype(jnp.int32)
+        t_all, f_all = pt.primary_sweep(
+            ranges, pt.pack_pairs(vertices, faces, grid, eye),
+            pt.pack_heavy(co), rays_t.reshape(-1, 3).T,
+            jnp.stack([gx_r, gy_r]), cfg=cfg, rep=NS, interpret=interpret)
+        t_cell = t_all.reshape(num_tiles, NS, R)
+        f_cell = f_all.reshape(num_tiles, NS, R)
     else:
-        counts = jax.lax.dynamic_slice(grid.cell_count, (c0,),
-                                       (cells_local,))
-        offsets = jax.lax.dynamic_slice(grid.cell_offset, (c0,),
-                                        (cells_local,))
-
         wcap = cells_local + grid.sorted_faces.shape[0] // cfg.tri_batch
         work = make_work_items(counts, offsets, cfg.tri_batch, wcap)
         tile_of_work = jnp.clip(work.cell // NS, 0, num_tiles - 1)
         ray_blocks = rays_t[tile_of_work]                # [Wcap, R, 3]
         tmin_w, pair_w = _work_chunk_min(
             vertices, faces, grid, work, ray_blocks, eye, cfg, chunk_size)
-        value_lookup = grid.sorted_faces
 
         # Segment-min over work items -> per (cell) candidates.
         seg = work.cell
@@ -333,58 +288,26 @@ def trace_primary(vertices, faces, camcoords, grid: DeviceGrid,
         t_cell = t_cell[:cells_local].reshape(num_tiles, NS, R)
         win_cell = win_cell[:cells_local].reshape(num_tiles, NS, R)
 
-    # Winner face id before the slab scan so the heavy-list candidates
-    # can be merged by (t, face) lex-min — the reference's strict-< scan
-    # order over its face-ascending merged cell list (ugrt.trace.heavy
-    # docstring).  The pallas kernel emits faces directly; the XLA path
-    # looks its winner pair index up in sorted_faces.
-    _MAXF = jnp.int32(2**31 - 1)
-    if value_lookup is None:
-        f_cell = jnp.where(t_cell >= _BIG, _MAXF, win_cell)
-    else:
-        f_cell = value_lookup[jnp.clip(win_cell, 0, None)
-                              ].astype(jnp.int32)
+        # Winner face id before the heavy merge, so the heavy-list
+        # candidates merge by (t, face) lex-min — the reference's
+        # strict-< scan order over its face-ascending merged cell list
+        # (ugrt.trace.heavy docstring).
+        _MAXF = jnp.int32(2**31 - 1)
+        f_cell = grid.sorted_faces[jnp.clip(win_cell, 0, None)
+                                   ].astype(jnp.int32)
         f_cell = jnp.where(t_cell >= _BIG, _MAXF, f_cell)
 
-    if grid.heavy_faces.shape[0] > 0:
-        from ugrt.trace import heavy as theavy
-
-        co = theavy.heavy_coeffs(vertices, faces, grid.heavy_faces,
-                                 grid.heavy_count, eye, grid.heavy_ranges)
-        if backend == "pallas":
-            # Dense VMEM-resident heavy sweep (pallas_tracer): one grid
-            # step per 128-ray block, whole coefficient table in VMEM.
-            # Bitwise-equal to heavy_min_t (same op order).
-            from ugrt.trace import pallas_tracer as pt
-
-            tri_hw = pt.pack_heavy_windows(co)
-            t_hb, face_hb = pt.heavy_primary_sweep(
-                grid.heavy_count, tri_hw, rows_rm, cfg=cfg,
-                interpret=interpret)
-            t_h = t_hb[:NBp].reshape(num_tiles, R)
-            f_h = jnp.where(t_h >= _BIG, jnp.int32(2**31 - 1),
-                            face_hb[:NBp].reshape(num_tiles, R))
-        else:
-            # Each ray's own grid cell: tile t covers cell
-            # (bx0 + t//tiles_y, t % tiles_y) — the footprint mask
-            # needs it.
-            tile_ids = jnp.arange(num_tiles, dtype=jnp.int32)
-            gx_t = jnp.asarray(bx0, jnp.int32) + tile_ids // tiles_y
-            gy_t = tile_ids % tiles_y
-            gx_r = jnp.broadcast_to(gx_t[:, None],
-                                    (num_tiles, R)).reshape(-1)
-            gy_r = jnp.broadcast_to(gy_t[:, None],
-                                    (num_tiles, R)).reshape(-1)
+        if heavy:
             t_h, f_h = theavy.heavy_min_t(co, rays_t.reshape(-1, 3),
                                           gx_r, gy_r, cfg)
             t_h = t_h.reshape(num_tiles, R)
             f_h = f_h.reshape(num_tiles, R)
-        # Heavy faces live in slab 0 (build asserts num_slabs == 1).
-        t_c0 = t_cell[:, 0]
-        f_c0 = f_cell[:, 0]
-        take_h = (t_h < t_c0) | ((t_h == t_c0) & (f_h < f_c0))
-        t_cell = t_cell.at[:, 0].set(jnp.where(take_h, t_h, t_c0))
-        f_cell = f_cell.at[:, 0].set(jnp.where(take_h, f_h, f_c0))
+            # Heavy faces live in slab 0 (build asserts num_slabs == 1).
+            t_c0 = t_cell[:, 0]
+            f_c0 = f_cell[:, 0]
+            take_h = (t_h < t_c0) | ((t_h == t_c0) & (f_h < f_c0))
+            t_cell = t_cell.at[:, 0].set(jnp.where(take_h, t_h, t_c0))
+            f_cell = f_cell.at[:, 0].set(jnp.where(take_h, f_h, f_c0))
 
     # Sequential slab scan with the isWithin(done) state machine.
     mvp = camcoords[48:64]

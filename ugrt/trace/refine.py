@@ -2,7 +2,7 @@
 
 The reference has no backward pass; BASELINE.json requires gradients of
 the rendered image w.r.t. vertex positions, normals, and materials.  The
-TPU-native design splits the trace into:
+design splits the trace into:
 
   1. a *combinatorial* forward (ugrt.trace.primary / the Pallas kernel)
      that returns only the winning face id per pixel — this part is
@@ -52,11 +52,11 @@ def refine_primary(vertices, faces, camcoords, primary_raw,
     # gather_face_corners == vertices[faces[fid]] forward (as one [F, 9]
     # table + one wide pixel-width row gather); its VJP accumulates
     # cotangents at FACE granularity first (sort 1M x 2 operands instead
-    # of the corner-level 3.1M x 4 — VERDICT r4 #4), then scatters the
-    # [F, 3, 3] face sums into vertices with a small 3F-row sort.
-    # Everything runs FLAT ([H*W, ...]) and reshapes once at the end:
-    # computing at [H, W, 3, 3] made XLA materialize ~6.5 ms/step of
-    # 4-D layout copies around the gather.
+    # of the corner-level 3.1M x 4), then scatters the [F, 3, 3] face
+    # sums into vertices with a small 3F-row sort.  Everything runs FLAT
+    # ([H*W, ...]) and reshapes once at the end: computing at
+    # [H, W, 3, 3] made XLA materialize 4-D layout copies around the
+    # gather.
     H, W = fid.shape
     aux = None
     if face_aux is not None:

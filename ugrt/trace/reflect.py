@@ -64,9 +64,8 @@ def trace_uniform_dda(vertices, faces, grid: DeviceGrid, origins, dirs,
     origins/dirs: [N, 3] float32; active: [N] bool; exclude_face: [N]
     int32 face to ignore (self-hit).  Returns dict(t [N], face_id [N]).
 
-    TPU structure (round 5; results identical to the round-4 dense
-    lax.scan, which ran EVERY ray for gx+gy+gz steps x max_batches
-    gathers):
+    Structure (results identical to a dense lax.scan that runs EVERY
+    ray for gx+gy+gz steps x max_batches gathers):
       * rays process in ``chunk_rays`` chunks (lax.map) with a
         lax.while_loop per chunk — a chunk stops as soon as all its
         rays resolved, and pixel-order chunks are spatially coherent so
@@ -76,14 +75,12 @@ def trace_uniform_dda(vertices, faces, grid: DeviceGrid, origins, dirs,
         only when some live ray's cell actually has > b*B triangles;
       * corner fetch is one row gather from a per-face [F, 9] table
         (v0, e1, e2) instead of the two-level vertices[faces[...]]
-        gather (row gathers cost per ROW on TPU);
+        gather;
       * EMPTY-CELL SKIPPING: each step first advances rays through up
         to ``skip_k`` empty cells (a 1-wide cell-count gather + the
-        elementwise DDA advance, ~0.2 ms per sub-step at 64k rays) —
-        interior uniform grids are ~80% empty, and without the skip
-        every empty cell costs a full triangle-batch sweep (measured
-        54 s/frame at 1024^2 / 75k tris; with skipping + batch=32 the
-        same frame is several times faster);
+        elementwise DDA advance) — interior uniform grids are ~80%
+        empty, and without the skip every empty cell costs a full
+        triangle-batch sweep;
       * ``batch`` (default cfg.tri_batch) sets the triangle batch
         width — uniform-grid cells average ~10-30 triangles, so 32
         halves the dominant gather volume vs the tracer's 64.

@@ -7,15 +7,15 @@ decision_data.h:171-271 and misc_kernel.cu:255-333) — then traces one CUDA
 block per ray packet streaming the cell's triangle list through shared
 memory (mod_light_rckernel, light_kernel.cu:52-270).
 
-The TPU-native formulation keeps the insight (sorting shadow rays by
-light-grid cell makes them coherent) but replaces the reference's
-variable-offset packets with **fixed 64-ray blocks of the sorted stream**:
+This formulation keeps the insight (sorting shadow rays by light-grid
+cell makes them coherent) but replaces the reference's variable-offset
+packets with **fixed blocks of the sorted stream**:
 
   cells    — per-ray light-cell id (ugrt.grid.binning.ray_light_cells)
   sort     — lax.sort (cell, ray) pairs, stable (== 15-bit CUDPP radix,
              decision_data.h:177)
-  blocks   — the sorted stream reshaped into [N/64, 64]: block b = rays
-             [64b, 64b+64).  No compaction, no packet-start marking, no
+  blocks   — the sorted stream reshaped into [N/R, R]: block b = rays
+             [Rb, Rb+R).  No compaction, no packet-start marking, no
              ragged gather — packets become a reshape.
   segments — cell runs in the sorted stream (head flags + cumsum); each
              segment knows which blocks it overlaps
@@ -29,9 +29,11 @@ Results are identical to the reference's packet scheme: every ray is
 tested against exactly its own cell's triangle list.  The reference's
 cell-pure packets are still available as ``build_packets`` (the
 DecisionData-parity component); the renderer path uses block scheduling
-because it is allocation-exact (N/64 blocks, no cells+N/64 packet
+because it is allocation-exact (N/R blocks, no cells+N/64 packet
 overallocation) and turns the per-packet ray gather — 4M scattered row
-reads, ~60 ms/frame at 1024x1024 on v5e — into a reshape.
+reads at 1024x1024 — into a reshape.  The fused kernel
+(ugrt.trace.pallas_tracer) sweeps each block's contiguous pair range
+directly instead of building work items.
 
 Divergence (defined semantics, SURVEY.md §3.5): rays whose shadow
 direction leaves the light grid get the sentinel cell and the reference
@@ -74,9 +76,8 @@ def _unpermute(values, perm):
     """values[i] belongs to original index perm[i] -> original order.
 
     perm is a permutation (the shadow sort's ray ids), so this is a
-    gather by the inverse permutation; computing the inverse needs a
-    scatter, which XLA lowers serially on TPU (~15 ms at 1M rays), so
-    instead sort (perm, values) by perm — the radix sort is ~1 ms.
+    gather by the inverse permutation; instead of the scatter that
+    computing the inverse needs, sort (perm, values) by perm.
     """
     return jax.lax.sort((perm, values), num_keys=1)[1]
 
@@ -196,7 +197,7 @@ def light_extents(primary, primary_eye, light_camcoords,
 # Windowed light-grid margin: fraction of the window width added per
 # side, and the width floor (degenerate windows).  ugrt.dist.mesh
 # re-applies these after its cross-device min/max reduction — keep the
-# single source of truth here (ADVICE r4).
+# single source of truth here.
 WINDOW_MARGIN = 2e-3
 WINDOW_MIN_WIDTH = 1e-4
 
@@ -251,8 +252,7 @@ def trace_shadow(vertices, faces, light_camcoords, light_grid: DeviceGrid,
                  primary, primary_eye, cfg: RenderConfig, *,
                  chunk_size: int = 256,
                  work_capacity: int | None = None,
-                 backend: str = "xla", interpret: bool = False,
-                 block_rays: int = 128,
+                 backend: str | None = None, interpret: bool = False,
                  x_max=None, y_max=None, window=None):
     """Per-pixel shadow flags [H, W] int32 (mod_light_rckernel semantics).
 
@@ -260,25 +260,33 @@ def trace_shadow(vertices, faces, light_camcoords, light_grid: DeviceGrid,
     eye + (-1)*dir is faithfully garbage, exactly as the reference
     reorders all IMAGE_SIZE rays (misc_kernel.cu:294-295).
 
-    block_rays sets the sorted-stream block width for the TPU scheduler
-    (default 128 = full VPU lane occupancy).  Results are invariant to it
-    — every ray is cell-masked against exactly its own cell's triangles;
-    the reference's 64-ray packets (MAX_RAYS_PER_BLOCK) remain available
-    via build_packets.
+    Rays are swept in fixed blocks of the cell-sorted stream (128 rays
+    on the XLA path, pallas_tracer.RAYS in the kernel).  Results do not
+    depend on the block width — every ray is cell-masked against exactly
+    its own cell's triangles; the reference's 64-ray packets
+    (MAX_RAYS_PER_BLOCK) remain available via build_packets.
+
+    backend: "xla" (work-item pipeline) or "pallas" (the fused range
+    sweep of ugrt.trace.pallas_tracer); None picks the platform's
+    default (ugrt.trace.default_trace_backend).  interpret runs the
+    kernel in the Pallas interpreter (CPU tests).  The kernel has no
+    static work capacity, so its overflow flag is always false.
 
     x_max/y_max override the angular extent of the ray->cell mapping
     (may be traced scalars from light_extents); ``window`` selects the
     windowed parameterization (light_window).  Either MUST match what
     light_grid was built with or cell keys disagree.
     """
+    if backend is None:
+        from ugrt.trace import default_trace_backend
+        backend = default_trace_backend()
     H, W = primary["t"].shape
     n = H * W
     L = light_camcoords[0:3]
-    R = block_rays
+    R = 128
     B = cfg.tri_batch
     NS = cfg.num_slabs
     sentinel = cfg.cell_sentinel
-    tight_extent = x_max is not None or window is not None
     if x_max is None:
         x_max = cfg.angular_extent
     if y_max is None:
@@ -298,14 +306,74 @@ def trace_shadow(vertices, faces, light_camcoords, light_grid: DeviceGrid,
             x_max, y_max,
             cfg.quirks.y_forward_dot_typo, xp=jnp).reshape(n)
 
-    # Heavy-list occlusion (two-level grid): dense sweep over the few
-    # global faces.  Sentinel-cell rays are excluded — they test no
-    # triangles (SURVEY.md §3.5 divergence note).  The pallas backend
-    # runs this as a VMEM-resident kernel over the sorted blocks below;
-    # the XLA path sweeps in original ray order here.
-    shadow_heavy = jnp.zeros((n,), dtype=jnp.int32)
     use_heavy = light_grid.heavy_faces.shape[0] > 0
-    if use_heavy and backend != "pallas":
+
+    # Sort rays by light cell with the hit point riding as radix-sort
+    # PAYLOAD columns: building shadow rows in original order and
+    # gathering them through the permutation costs a transposed [N, 4]
+    # gather; the (dir, dist) math runs on the sorted values instead —
+    # elementwise ops commute with the permutation bitwise, so results
+    # are unchanged.
+    ray_ids = jnp.arange(n, dtype=jnp.int32)
+    (sorted_cells, sorted_ray, spx, spy, spz) = jax.lax.sort(
+        (cells, ray_ids, pts[:, 0], pts[:, 1], pts[:, 2]), num_keys=1)
+    spts = jnp.stack([spx, spy, spz], axis=1)             # [N, 3]
+    delta = spts - L[None]
+    srows = jnp.concatenate([normalize(delta, xp=jnp),
+                             jnp.sqrt(dot(delta, delta))[:, None]], axis=1)
+
+    if backend == "pallas":
+        # One program per RAYS-ray block of the sorted stream: its cells
+        # are a contiguous key range, so its pairs are the one range
+        # [offset[first cell], end of last cell), swept with the key
+        # test; heavy faces are the program's second range.
+        from ugrt.trace import pallas_tracer as pt
+
+        PR = pt.RAYS
+        G = -(-n // PR)
+        cblk = jnp.pad(sorted_cells, (0, G * PR - n),
+                       constant_values=sentinel).reshape(G, PR)
+        first_cell = jnp.clip(cblk[:, 0], 0, sentinel - 1)
+        last_real = jnp.max(jnp.where(cblk < sentinel, cblk, -1), axis=1)
+        live = last_real >= 0
+        last_cell = jnp.clip(last_real, 0, sentinel - 1)
+        out_grid = sorted_cells >= sentinel
+        gx = jnp.where(out_grid, -1, sorted_cells // cfg.grid_y)
+        gy = jnp.where(out_grid, -1, sorted_cells % cfg.grid_y)
+        co = None
+        if use_heavy:
+            from ugrt.trace import heavy as theavy
+
+            co = theavy.heavy_coeffs(
+                vertices, faces, light_grid.heavy_faces,
+                light_grid.heavy_count, L, light_grid.heavy_ranges)
+        pairs = pt.pack_pairs(vertices, faces, light_grid, L)
+        heavy = pt.pack_heavy(co)
+        zero = jnp.zeros((G,), jnp.int32)
+        shadowed = jnp.zeros((n,), jnp.int32)
+        for slab in range(NS):
+            k1 = first_cell * NS + slab
+            k2 = last_cell * NS + slab
+            lo = jnp.where(live, light_grid.cell_offset[k1], 0)
+            hi = jnp.where(live, light_grid.cell_offset[k2]
+                           + light_grid.cell_count[k2], 0)
+            # Heavy faces exist only with one slab (see build).
+            hhi = light_grid.heavy_count if use_heavy and slab == 0 else 0
+            ranges = jnp.stack([lo, hi, zero, zero + hhi]).astype(
+                jnp.int32)
+            key = jnp.where(out_grid, -1, sorted_cells * NS + slab)
+            sh = pt.shadow_sweep(ranges, pairs, heavy, srows.T,
+                                 jnp.stack([key, gx, gy]), L, cfg=cfg,
+                                 interpret=interpret)
+            shadowed = jnp.maximum(shadowed, sh)
+        shadowed = _unpermute(shadowed, sorted_ray)
+        return shadowed.reshape(H, W), jnp.asarray(False)
+
+    # Heavy-list occlusion (two-level grid): dense sweep over the few
+    # global faces, in original ray order.  Sentinel-cell rays are
+    # excluded — they test no triangles (SURVEY.md §3.5 divergence note).
+    shadow_heavy = jnp.zeros((n,), dtype=jnp.int32)
+    if use_heavy:
         from ugrt.trace import heavy as theavy
 
         delta0 = pts - L[None]
@@ -321,175 +389,15 @@ def trace_shadow(vertices, faces, light_camcoords, light_grid: DeviceGrid,
         sh_h = theavy.heavy_shadowed(co, dirs0, dist0, gx_r, gy_r, cfg)
         shadow_heavy = jnp.where(cells < sentinel, sh_h, 0)
 
-    # Sort rays by light cell with the hit point riding as radix-sort
-    # PAYLOAD columns (round 5): building shadow rows in original order
-    # and gathering them through the permutation emitted a transposed-
-    # layout [N, 4] gather XLA runs at 4.6 ms/step at 1024^2; payload
-    # columns add ~1 ms to the sort and the (dir, dist) math runs on
-    # the sorted values — elementwise ops commute with the permutation
-    # bitwise, so results are unchanged.
-    ray_ids = jnp.arange(n, dtype=jnp.int32)
-    (sorted_cells, sorted_ray, spx, spy, spz) = jax.lax.sort(
-        (cells, ray_ids, pts[:, 0], pts[:, 1], pts[:, 2]), num_keys=1)
-
-    # Pad the sorted stream to a whole number of blocks with sentinel
-    # rays (masked everywhere by the cell-equality test).
+    # Pad the sorted stream to a whole number of R-ray blocks with
+    # sentinel rays (masked everywhere by the cell-equality test).
     n_pad = -(-n // R) * R
     NB = n_pad // R
     scells = jnp.pad(sorted_cells, (0, n_pad - n),
                      constant_values=sentinel)
-    spts = jnp.stack([spx, spy, spz], axis=1)             # [N, 3]
-    delta = spts - L[None]
-    dist_pt = jnp.pad(jnp.sqrt(dot(delta, delta)), (0, n_pad - n))
-    sh_dirs = jnp.pad(normalize(delta, xp=jnp),
-                      ((0, n_pad - n), (0, 0)))
-    srows = jnp.concatenate([sh_dirs, dist_pt[:, None]], axis=1)
-
-    if backend == "pallas":
-        # v3 window scheduler (ugrt.trace.pallas_tracer): work item =
-        # (128-ray block of the sorted stream, 128-triangle window of
-        # the light grid's sorted pair array), in-kernel cell-key
-        # masking.  A block's cells are a contiguous key range (the
-        # stream is sorted), so its pair span is contiguous; windows
-        # are the 128-aligned cover of that span.
-        from ugrt.trace import pallas_tracer as pt
-
-        assert R == 128, "pallas shadow backend uses 128-ray blocks"
-        # 256-wide triangle windows: shadow spans cover ~8.5 windows per
-        # ray block, so wider windows amortize the ~0.5 us per-item
-        # fixed cost (primary keeps 128: its spans fit one window).
-        SWIN = 256
-        tri_w = pt.pack_tri_windows_coeff(vertices, faces, light_grid, L,
-                                          win=SWIN)
-        NW = tri_w.shape[0]
-        # Heavy faces run as a SECOND scheduled sweep over 128-wide
-        # footprint-box windows — round 5: the dedicated heavy
-        # kernels' Mosaic while-loop structures floored at ~17-27
-        # ms/step at 1024^2, and appending heavy windows to the
-        # 256-wide normal table cost ~27 ms (4 windows have no spatial
-        # selectivity).  Measured on the flagship windowed light grid
-        # (589 heavy faces averaging ~13% of the grid): per-block
-        # window overlap is 3.66 at 128-wide vs 6.52 at 64-wide, and
-        # the overlap sets are exactly their contiguous range cover —
-        # individual faces are too large for finer windows to prune
-        # more, so 128 minimizes items x per-item cost.
-        HWIN = 128
-        NWH = 0
-        tri_hw = None
-        if use_heavy:
-            from ugrt.trace import heavy as theavy
-
-            co = theavy.heavy_coeffs(
-                vertices, faces, light_grid.heavy_faces,
-                light_grid.heavy_count, L, light_grid.heavy_ranges)
-            co = pt.spatial_reorder_heavy(co)
-            tri_hw = pt.pack_heavy_coeff_windows(co, win=HWIN)
-            NWH = tri_hw.shape[0]
-        if work_capacity is None:
-            # A block's window cover is its span's windows; blocks inside
-            # a ray-heavy cell each re-cover that cell's whole list, so
-            # the total is data-dependent.  Measured on reference-scale
-            # scenes (scripts/measure_shadow_work.py): ~8.5 128-wide
-            # windows per block -> ~5 at 256 under the pi extent; with
-            # measured extents (x_max given) rays and triangles spread
-            # over many more cells and the cover drops to ~1.2/block, so
-            # the bound tightens 6x -> 3x — dead capacity items are NOT
-            # free (each is a skipped-but-scheduled grid step; ~40k of
-            # them measured ~15 ms).  The overflow flag guards both.
-            factor = 3 if tight_extent else 6
-            work_capacity = factor * NB + NW + 256
-        wcap = work_capacity
-
-        scell_blk = scells.reshape(NB, R)
-        first_cell = scell_blk[:, 0]   # sorted: block min cell
-        last_real = jnp.max(
-            jnp.where(scell_blk < sentinel, scell_blk, -1), axis=1)
-
-        # RAY-MAJOR row assembly [NB, R, 8] (comps: dir xyz, dist, cell
-        # key, gx, gy, pad) — srows is already ray-major, the heavy
-        # kernel consumes this layout directly, and ONE swapaxes derives
-        # the comp-major layout the windowed sweep wants.  Comps 5/6:
-        # the ray's light-cell coordinates for the heavy kernel's
-        # footprint mask; sentinel cells give gx == grid_x, outside
-        # every footprint (the sentinel exclusion).
-        srows_b = srows.reshape(NB, R, 4)
-        gxcol = (scell_blk // cfg.grid_y).astype(jnp.float32)[:, :, None]
-        gycol = (scell_blk % cfg.grid_y).astype(jnp.float32)[:, :, None]
-        # Guard block at index NB, then zero blocks up to the heavy
-        # kernel's MB grouping so _heavy_call never pads (a separate
-        # [NB, 128, 8] pad op costs ~1.6 ms at 1024^2); none can hit
-        # (zero dirs give det = 0) and their window ranges are empty.
-        align_pad = -(NB + 1) % pt.MB
-        guard_rm = jnp.concatenate(
-            [jnp.zeros((1 + align_pad, R, 4), jnp.float32),
-             jnp.full((1 + align_pad, R, 3), -1.0, jnp.float32),
-             jnp.zeros((1 + align_pad, R, 1), jnp.float32)], axis=2)
-
-        shadow_blocks = jnp.zeros((NB, R), dtype=jnp.int32)
-        overflow = jnp.asarray(False)
-        rows_rm = None
-        for slab in range(NS):
-            keycol = jnp.where(
-                scell_blk < sentinel,
-                (scell_blk * NS + slab).astype(jnp.float32),
-                -1.0)[:, :, None]                         # [NB, R, 1]
-            rows_rm = jnp.concatenate(
-                [srows_b, keycol, gxcol, gycol,
-                 jnp.zeros((NB, R, 1), jnp.float32)], axis=2)
-            rows_rm = jnp.concatenate([rows_rm, guard_rm], axis=0)
-            rays_b = jnp.swapaxes(rows_rm, 1, 2)
-
-            k1 = jnp.clip(first_cell, 0, sentinel - 1) * NS + slab
-            k2 = jnp.clip(last_real, 0, sentinel - 1) * NS + slab
-            lo = light_grid.cell_offset[k1]
-            hi = light_grid.cell_offset[k2] + light_grid.cell_count[k2]
-            live = last_real >= 0
-            lo = jnp.where(live, lo, 0)
-            hi = jnp.where(live, hi, 0)
-            win_idx, win_blk, ovf, total = pt.make_windows(
-                lo, hi, wcap, NW, win=SWIN)
-            overflow = overflow | ovf
-            # v4 kernel: occlusion OR accumulates in-kernel per ray
-            # block; output is already [NB+1, R].  Dynamic grid (total):
-            # only live items run.
-            sh_blk = pt.shadow_sweep(tri_w, rays_b, win_idx, win_blk,
-                                     total, cfg=cfg, interpret=interpret,
-                                     guard=NB)
-            # Under work-capacity overflow, truncated blocks' output rows
-            # are never initialized (uninitialized HBM, not merely
-            # missing occlusion) — force a defined value so callers that
-            # only warn on the flag still see a valid {0,1} mask.
-            sh_blk = jnp.where(ovf, 0, sh_blk)
-            shadow_blocks = jnp.maximum(shadow_blocks, sh_blk[:NB])
-
-        if use_heavy:
-            # Fine-grained heavy sweep: per-block window ranges from
-            # the spatially-packed windows' footprint unions; blocks
-            # with an empty range emit no item (their output rows are
-            # masked below — make_heavy_windows contract).
-            rects = pt.heavy_window_rects(co, win=HWIN)
-            hlo, hhi = pt.heavy_block_window_range(
-                first_cell, last_real, cfg.grid_y, rects)
-            # 5x avg windows/block capacity (measured 3.66/block on
-            # the flagship at HWIN=128; the schedule array lives in
-            # 1 MB SMEM, so the NWH*NB hard bound does not fit) —
-            # overflow-guarded, and overflow ZEROES the heavy mask, so
-            # callers must honor the flag (bench asserts it).
-            hw_idx, hw_blk, nh, h_ovf, h_total = pt.make_heavy_windows(
-                hlo, hhi, 5 * NB + 256, NWH)
-            overflow = overflow | h_ovf
-            sh_hb = pt.shadow_sweep(tri_hw, rays_b, hw_idx, hw_blk,
-                                    h_total, cfg=cfg,
-                                    interpret=interpret, guard=NB,
-                                    box=True)
-            sh_hb = jnp.where((nh[:, None] > 0) & ~h_ovf,
-                              sh_hb[:NB], 0)
-            shadow_blocks = jnp.maximum(shadow_blocks, sh_hb)
-
-        shadowed = _unpermute(shadow_blocks.reshape(n_pad)[:n],
-                              sorted_ray)
-        shadowed = jnp.maximum(shadowed, shadow_heavy)
-        return shadowed.reshape(H, W), overflow
+    srows = jnp.pad(srows, ((0, n_pad - n), (0, 0)))
+    sh_dirs = srows[:, :3]
+    dist_pt = srows[:, 3]
 
     # Cell runs (segments) of the sorted stream (XLA backend).
     pos = jnp.arange(n_pad, dtype=jnp.int32)
